@@ -1,0 +1,97 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
+with ``nvcc`` into its own shared library under ``_kernels_build/`` (listed
+in ``.gitignore``), then loaded with ``ctypes``.  The library's file name
+carries a hash of its source, so an edited kernel is never served stale.
+Nothing here runs at import time: the CPU tests import every module on a
+machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_kernels_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (Popen, tmp path, final path) or
+    None when the library is already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def build(names) -> dict[str, str]:
+    """Compile the named sources in parallel (one nvcc each, all started
+    together).  Returns each source's compiler output (with ``-Xptxas -v``
+    its register and shared-memory report); raises if any build fails."""
+    started = {n: _start(n) for n in names}
+    logs = {}
+    failed = []
+    for n, job in started.items():
+        if job is None:
+            logs[n] = "(cached)"
+            continue
+        proc, tmp, out = job
+        logs[n], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(n)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _loaded[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (cudaGetLastError())."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
