@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA card.
 
-Builds the port's CUDA kernels from ``mast3r_slam_torch/csrc``, holds each
-against its plain PyTorch version on the card at the shapes the tracking
-frontend gives it, times it beside its bound, its plain version and (where
-one exists) a single PyTorch library call, then drives the frontend
-(``SLAMSystem.process_frame``: INIT, then TRACKING) at full ViT-L width on
-384x512 frames with seeded random weights, and counts that every attention
-and every GN accumulation of that drive went through the kernels.
+Builds the port's three CUDA kernels from ``mast3r_slam_torch/csrc``
+(attention, the GN accumulation, the probe-table pack), holds each against
+its plain PyTorch version on the card at the shapes the main path gives it,
+and times it beside its bound, its plain version and (where one exists) a
+single PyTorch library call.  Then it drives the port as a user would:
+
+* ``main_torch.run`` (the frame loop of ``main_torch.py``) at full ViT-L
+  width on 384x512 frames with seeded random weights and ``config/base.yaml``
+  unmodified (the production matcher), counting that every attention, GN
+  accumulation and table pack of that drive went through the kernels, and
+  writing and reading back the trajectory;
+* a short drive at the same width with ``reference_exact: true`` (the
+  full-resolution matcher and the per-component Huber solve);
+* the oracle harness (a rendered 16-frame clip with known poses),
+  uncalibrated and calibrated, scored by ATE;
+* a stage breakdown of one tracking step.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 Exits non-zero, printing no result, when any phase fails or no CUDA card is
@@ -20,6 +29,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +49,9 @@ IMG_HW = (384, 512)
 # the drive's clip: frames, pixels between consecutive frames, and the share
 # of blurred noise in its image (testing.make_clip)
 N_FRAMES, CLIP_SHIFT, CLIP_TEXTURE = 6, 32, 0.5
+N_FRAMES_REFERENCE_EXACT = 3
+# ATE limits of the oracle drives: those of tests/test_pipeline.py
+ORACLE_ATE_LIMIT = {"uncalibrated": 0.05, "calibrated": 0.1}
 
 
 def card_info():
@@ -172,6 +185,136 @@ def check_gn(peak_bw, card):
     return out
 
 
+def pack_tables(cfg, hw_shape):
+    """The packed tables one ``match`` builds at the matching block ``cfg``:
+    (label, table dtype name, F, offsets, row0, n_rows) per ``pack_rows``
+    launch, in launch order: the LM corner table, then one per dilation of
+    the refine walk (``ops.matching.match_after_lm``)."""
+    from mast3r_slam_torch.ops.pack import _offsets
+
+    h, w = hw_shape
+    hw = h * w
+    lmt = cfg.lm_table_subsample == 2
+    wt, hwt = (w // 2, hw // 4) if lmt else (w, hw)
+    tables = [("lm corners", "f16", 9, (0, 1, wt, wt + 1), 0, hwt)]
+    dt, fdim = ("int8", 24) if cfg.desc_bits == 8 else ("bf16", 24)
+
+    def refine(radius, dilations, u_pack):
+        k_side = 2 * radius + 1
+        P = max(1, min(u_pack, k_side))
+        for d in dilations:
+            rd = radius * d
+            nib = cfg.coarse_bits == 4 and dt == "int8" and d > 1 \
+                and max(dilations) > 1
+            tables.append((f"refine d={d} r={radius} u_pack={P}", dt,
+                           fdim // 2 if nib else fdim,
+                           tuple(_offsets(k_side, d, rd, w, P)), -rd,
+                           hw + 2 * rd))
+
+    def small_pack(r):
+        return (2 * r + 1) if r <= 2 else 2
+
+    if cfg.radius <= 0:
+        return tables
+    if cfg.coarse_subsample != 2:
+        refine(cfg.radius, range(cfg.dilation_max, 0, -1), 2)
+        return tables
+    if cfg.dilation_max > 1:
+        sched = cfg.dilation_schedule or tuple(range(cfg.dilation_max, 1, -1))
+        refine(cfg.radius, sched[:1], 2)
+        r_c = cfg.coarse_radius or cfg.radius
+        refine(r_c, sched[1:], small_pack(r_c))
+    if cfg.final_radius >= 0:
+        r_f = cfg.final_radius or cfg.radius
+        refine(r_f, (1,), small_pack(r_f))
+    return tables
+
+
+def check_pack(match_cfg, peak_bw, card):
+    """Kernel C against ``pack_rows_plain``, bitwise (it is a copy): every
+    table of the production matcher at 384x512 in int8, f16, bf16 and f32,
+    a batch of 2, a table no tile divides (300 x 7 rows) and offsets beyond
+    the table.  Then the time of each production table in its own dtype
+    beside the plain version, the single advanced-index gather that
+    computes the same table from a zero-padded copy, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from mast3r_slam_torch.ops import pack
+
+    dtypes = {"int8": torch.int8, "f16": torch.float16,
+              "bf16": torch.bfloat16, "f32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def table(dt, b, hw, f):
+        return torch.randint(-127, 128, (b, hw, f), device="cuda",
+                             generator=gen).to(dtypes[dt])
+
+    def same(x, offs, row0, n_rows, what):
+        got = pack.pack_rows(x, offs, row0, n_rows)
+        ref = pack.pack_rows_plain(x, offs, row0, n_rows)
+        torch.cuda.synchronize()
+        ok = got.shape == ref.shape and got.dtype == ref.dtype and \
+            torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+        print(f"pack {what}: {tuple(x.shape)} {x.dtype} -> "
+              f"{tuple(got.shape)} bitwise equal {ok}")
+        if not ok:
+            raise SystemExit("pack kernel disagrees with its plain version")
+        return got
+
+    tables = pack_tables(match_cfg, IMG_HW)
+    for label, _, fdim, offs, row0, n_rows in tables:
+        for dt in dtypes:
+            same(table(dt, 1, n_rows + 2 * row0, fdim), offs, row0, n_rows,
+                 f"{label} {dt}")
+    hw_odd, w_odd = 300 * 7, 7
+    offs_odd = tuple(pack._offsets(5, 2, 4, w_odd, 5))
+    for dt in dtypes:
+        same(table(dt, 2, hw_odd, 24), offs_odd, -4, hw_odd + 8,
+             f"b=2 hw=300x7 {dt}")
+    far = same(table("int8", 2, hw_odd, 24),
+               (hw_odd + 4, -hw_odd - 4, 5 * hw_odd), -4, hw_odd + 8,
+               "offsets beyond the table")
+    if bool(far.any()):
+        raise SystemExit("rows outside the table must read as zeros")
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for label, dt, fdim, offs, row0, n_rows in tables:
+        hw = n_rows + 2 * row0
+        x = table(dt, 1, hw, fdim)
+        lo = min(0, row0 + min(offs))
+        hi = max(hw, row0 + n_rows + max(offs))
+        padded = F.pad(x, (0, 0, -lo, hi - hw))
+        index = (torch.arange(n_rows, device="cuda")[:, None] + (row0 - lo)
+                 + torch.tensor(offs, device="cuda")[None, :])
+        lib = padded[:, index].reshape(1, n_rows, -1)
+        if not torch.equal(lib, pack.pack_rows(x, offs, row0, n_rows)):
+            raise SystemExit("the library gather computes another table")
+        del lib
+        nbytes = x.element_size() * fdim * (hw + n_rows * len(offs))
+        t = {
+            "ms": time_ms(lambda: pack.pack_rows(x, offs, row0, n_rows),
+                          reps=100),
+            "plain_ms": time_ms(
+                lambda: pack.pack_rows_plain(x, offs, row0, n_rows), reps=20),
+            "library_ms": time_ms(lambda: padded[:, index], reps=20),
+            "bound_ms": nbytes / peak_bw * 1e3,
+        }
+        print(f"pack {label} ({hw}, {fdim}) {dt} K={len(offs)} -> "
+              f"{n_rows} x {len(offs) * fdim * x.element_size()} B: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, gather "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"(bytes) [{card}]")
+        for key in total:
+            total[key] += t[key]
+    print(f"pack, the {len(tables)} tables of one match: kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, gather "
+          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms "
+          f"[{card}]")
+    total.update(bound_by="bytes", max_abs_err=0.0)
+    return total
+
+
 def check_small_model():
     """The network through the kernels on the card against the same weights
     through the plain versions on the CPU, at a small f32 size whose
@@ -207,65 +350,91 @@ def check_small_model():
                              "CPU reference")
 
 
-def drive_frontend(seed, card):
-    """``SLAMSystem.process_frame`` over a clip at full ViT-L width, with the
-    weights of ``torch.manual_seed(seed)`` conditioned so that the clip
-    tracks (``testing.condition_for_tracking``)."""
+def build_engine(seed):
+    """The ViT-L network with the weights of ``torch.manual_seed(seed)``,
+    conditioned so that the clip tracks
+    (``testing.condition_for_tracking``), in an engine on the card."""
     import torch
 
-    from mast3r_slam_torch.frame import Mode
     from mast3r_slam_torch.inference import InferenceEngine
     from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
-    from mast3r_slam_torch.ops import gn
-    from mast3r_slam_torch.ops.attention import flash_attention
-    from mast3r_slam_torch.ops.matching import MatchingConfig
-    from mast3r_slam_torch.pipeline import SLAMSystem
-    from mast3r_slam_torch.testing import condition_for_tracking, make_clip
-    from mast3r_slam_torch.utils.config import frontend_config
+    from mast3r_slam_torch.testing import condition_for_tracking
 
-    cfg = frontend_config("config/base.yaml")
     mcfg = MASt3RConfig.vit_large()
     torch.manual_seed(seed)
     model = MASt3R(mcfg)
     model.load_state_dict(condition_for_tracking(
         model.state_dict(), mcfg.patch_size, mcfg.local_feat_dim))
-    engine = InferenceEngine(model, IMG_HW,
-                             match_cfg=MatchingConfig.from_dict(
-                                 cfg["matching"]), device="cuda")
-    system = SLAMSystem(cfg, engine, IMG_HW, buffer=N_FRAMES, device="cuda")
-    frames = make_clip(seed, N_FRAMES, IMG_HW, CLIP_SHIFT, CLIP_TEXTURE)
+    return InferenceEngine(model, IMG_HW, device="cuda"), mcfg
+
+
+def drive_frontend(engine, mcfg, cfg, frames, card, label):
+    """``main_torch.run`` (dataset -> ``SLAMSystem.process_frame`` ->
+    summary) over an in-memory clip with the configuration ``cfg``, then the
+    trajectory written with ``evaluate.save_traj`` and read back.  Every
+    kernel's count is set to 0 just before the loop and read just after;
+    the counts must be what the configuration implies."""
+    import torch
+
+    import main_torch
+    from mast3r_slam_torch import evaluate
+    from mast3r_slam_torch.ops import gn
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.matching import MatchingConfig
+    from mast3r_slam_torch.ops.pack import pack_rows
+    from mast3r_slam_torch.pipeline import SLAMSystem
+    from mast3r_slam_torch.testing import ClipDataset
+    from mast3r_slam_torch.tracker import TrackerConfig
+
+    engine.match_cfg = MatchingConfig.from_dict(cfg["matching"])
+    system = SLAMSystem(cfg, engine, IMG_HW, buffer=len(frames),
+                        device="cuda")
+    dataset = ClipDataset(frames)
+    args = main_torch.parse_args(["--no-viz"])
     torch.cuda.synchronize()
 
-    flash_attention.launches = 0
-    gn.gn_sums.launches = 0
-    n_enc = n_dec = 0
-    for i, img in enumerate(frames):
-        if system.mode == Mode.RELOC:
-            print(f"frame {i}: system is in RELOC (random weights); "
-                  f"relocalization is a later slice, stopping the drive")
-            break
-        t0 = time.perf_counter()
-        info = system.process_frame(i, img)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        n_enc += 1
-        n_dec += 1   # INIT: mono decode; TRACKING: asymmetric decode
-        print(f"frame {i}: mode {info['mode']} match_frac "
-              f"{info.get('match_frac', float('nan')):.4f} gn_iters "
-              f"{info.get('gn_iters', 0)} kf_metric "
-              f"{info.get('new_kf_metric', float('nan')):.4f} new_kf "
-              f"{info['new_kf']} {ms:.1f} ms [{card}]")
-    attn_launches = flash_attention.launches
-    gn_launches = gn.gn_sums.launches
+    flash_attention.launches = gn.gn_sums.launches = pack_rows.launches = 0
+    t0 = time.perf_counter()
+    summary = main_torch.run(system, dataset, args)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"attention": flash_attention.launches,
+                "gn_accumulate": gn.gn_sums.launches,
+                "pack_rows": pack_rows.launches}
 
-    expect = (mcfg.enc_depth * n_enc + 4 * mcfg.dec_depth * n_dec)
-    print(f"attention launches {attn_launches} (expected {expect} = "
-          f"{mcfg.enc_depth}x{n_enc} encodes + {4 * mcfg.dec_depth}x{n_dec} "
-          f"decodes); GN launches {gn_launches}")
-    if attn_launches != expect:
+    stats = summary["stats"]
+    n = summary["frames"]
+    print(f"{label}: {n} frames in {wall_ms:.1f} ms, stats {stats}, mean GN "
+          f"iterations {summary['mean_gn_iters']:.2f} [{card}]")
+    if summary["lost_at"] is not None or n != len(frames) or \
+            stats["skipped"]:
+        raise SystemExit(f"{label}: the drive lost tracking (random "
+                         f"weights); relocalization is a later slice")
+    tracked = stats["tracked"]
+    if tracked != n - 1:
+        raise SystemExit(f"{label}: {tracked} tracked frames of {n - 1}")
+
+    # every frame encodes once and decodes once (INIT: mono decode;
+    # TRACKING: asymmetric decode), each decode with 4 attentions a block
+    expect_attn = (mcfg.enc_depth + 4 * mcfg.dec_depth) * n
+    per_match = len(pack_tables(engine.match_cfg, IMG_HW))
+    expect_pack = per_match * tracked
+    joint = TrackerConfig.from_config(cfg).joint_ray_huber
+    print(f"{label}: attention launches {launches['attention']} (expected "
+          f"{expect_attn} = ({mcfg.enc_depth} + {4 * mcfg.dec_depth}) x {n} "
+          f"frames); pack launches {launches['pack_rows']} (expected "
+          f"{expect_pack} = {per_match} tables x {tracked} tracked frames); "
+          f"GN launches {launches['gn_accumulate']} "
+          f"({'one per GN iteration' if joint else 'none: per-component Huber'})")
+    if launches["attention"] != expect_attn:
         raise SystemExit("attention launches do not match the drive")
-    if gn_launches < 1:
-        raise SystemExit("the GN kernel never ran in the drive")
+    if launches["pack_rows"] != expect_pack:
+        raise SystemExit("pack launches do not match the drive")
+    expect_gn = system.tracker.gn_iters_total if joint else 0
+    if launches["gn_accumulate"] != expect_gn or (joint and expect_gn < 1):
+        raise SystemExit(f"GN launches {launches['gn_accumulate']} do not "
+                         f"match the drive ({expect_gn} GN iterations)")
+
     n_kf = system.arena.n_size
     tensors = {
         "keyframe pointmaps": system.arena.X[:n_kf],
@@ -278,23 +447,81 @@ def drive_frontend(seed, card):
             raise SystemExit(f"non-finite {name}")
     if tuple(system.arena.X.shape[1:]) != (IMG_HW[0] * IMG_HW[1], 3):
         raise SystemExit("unexpected pointmap shape")
-    print(f"frontend: {n_enc} frames, {n_kf} keyframes, all outputs finite")
-    return attn_launches, gn_launches, system
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluate.save_traj(tmp, "traj.txt", dataset.timestamps, system.arena)
+        ts, pos, quat = evaluate.load_tum_trajectory(f"{tmp}/traj.txt")
+    if len(ts) != n_kf or not np.allclose(
+            pos, system.arena.T_WC[:n_kf, :3].cpu().numpy(), rtol=1e-5,
+            atol=1e-6) or not np.allclose(np.linalg.norm(quat, axis=-1), 1.0,
+                                          atol=1e-5):
+        raise SystemExit(f"{label}: the trajectory file does not hold the "
+                         f"keyframe poses")
+    print(f"{label}: {n_kf} keyframes, all outputs finite, trajectory "
+          f"written and read back")
+    return launches, system
 
 
-def breakdown(system, img, card):
+def drive_oracle(card):
+    """The oracle harness on the card: the 16-frame 48x64 clip of
+    ``tests/test_pipeline.py`` rendered with known poses, ``OracleEngine``
+    in place of the network, the frontend uncalibrated and calibrated, and
+    the trajectory scored by ATE against the ground truth."""
+    import torch
+
+    from mast3r_slam_torch import evaluate
+    from mast3r_slam_torch.ops import gn
+    from mast3r_slam_torch.pipeline import SLAMSystem
+    from mast3r_slam_torch.testing import OracleEngine, SyntheticSequence
+    from mast3r_slam_torch.utils.config import load_config
+
+    seq = SyntheticSequence(n_frames=16, h=48, w=64, seed=0, traj_scale=0.5)
+    out = {}
+    for mode, path in (("uncalibrated", "config/eval_no_calib.yaml"),
+                       ("calibrated", "config/eval_calib.yaml")):
+        cfg = load_config(path)
+        cfg["dataset"]["img_size"] = 64
+        engine = OracleEngine(seq, device="cuda")
+        system = SLAMSystem(cfg, engine, (seq.h, seq.w),
+                            K=seq.K if cfg["use_calib"] else None, buffer=32,
+                            device="cuda")
+        gn.gn_sums.launches = 0
+        for i in range(len(seq)):
+            system.process_frame(i, seq.images[i])
+        system.terminate()
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            evaluate.save_traj(tmp, "est.txt", seq.timestamps, system.arena)
+            seq.write_gt(f"{tmp}/gt.txt")
+            ate = evaluate.ate_rmse(f"{tmp}/gt.txt", f"{tmp}/est.txt",
+                                    max_diff=0.05)
+        print(f"oracle drive {mode}: ATE RMSE {ate:.6f} m (limit "
+              f"{ORACLE_ATE_LIMIT[mode]} m), stats {system.stats}, GN kernel "
+              f"launches {gn.gn_sums.launches} [{card}]")
+        if system.stats["skipped"] or system.stats["keyframes"] < 2 or \
+                not ate < ORACLE_ATE_LIMIT[mode]:
+            raise SystemExit(f"oracle drive {mode} failed")
+        out[mode] = ate
+    return out
+
+
+def breakdown(system, img, card, label, full=True):
     """Device time of each stage of one tracking step against the last
-    keyframe, on the drive's own state: encode, decode + heads, dense
-    match, the GN pose solve (inputs captured from a ``track_step``) and
-    the whole ``track_step``.  Each figure is the mean of five back-to-back
-    runs after one warm-up."""
+    keyframe, on the drive's own state: encode, decode + heads, dense match
+    (quantisation included, as the engine runs it), the packed tables of
+    that match alone, the GN pose solve (inputs captured from a
+    ``track_step``) and the whole ``track_step``.  Each figure is the mean
+    of five back-to-back runs after one warm-up.  ``full=False`` times the
+    matcher's stages and the step only."""
     import torch
 
     from mast3r_slam_torch import tracker as trk
     from mast3r_slam_torch.frame import arena_get
     from mast3r_slam_torch.ops import matching
+    from mast3r_slam_torch.ops.pack import pack_rows
 
     eng = system.engine
+    mcfg = eng.match_cfg = matching.MatchingConfig.from_dict(
+        system.cfg["matching"])
     kf = arena_get(system.arena, system.arena.n_size - 1)
     frame = system.create_frame(0, img)
     hw = IMG_HW[0] * IMG_HW[1]
@@ -302,6 +529,25 @@ def breakdown(system, img, card):
     normed = torch.from_numpy(system.prepare_image(img)[0])[None].cuda()
     args = (frame.feat[None], frame.pos[None], kf.feat[None], kf.pos[None])
     (X1, _, D1, _), (X2, _, D2, _) = eng.decode_pair(*args)
+
+    def match():
+        q1, q2 = matching._q8_pair(D1, D2.reshape(1, hw, -1),
+                                   mcfg.desc_prenorm)
+        return matching.match(X1, X2, q1, q2.reshape(D2.shape), idx0,
+                              cfg=mcfg)
+
+    # the tables of this match, from its own ray field and descriptors
+    rays, _, _ = matching.prep_for_iter_proj(
+        X1, X2, idx0, table_subsample=mcfg.lm_table_subsample)
+    src = {"f16": rays.reshape(1, -1, 9).to(torch.float16).contiguous(),
+           "int8": matching._q8_pair(D1, D1, mcfg.desc_prenorm)[0]
+           .reshape(1, hw, -1).contiguous(),
+           "bf16": D1.reshape(1, hw, -1).to(torch.bfloat16).contiguous()}
+    tables = pack_tables(mcfg, IMG_HW)
+
+    def pack():
+        for _, dt, _, offs, row0, n_rows in tables:
+            pack_rows(src[dt], offs, row0, n_rows)
 
     captured = {}
     solve = trk.opt_pose_ray_dist_sim3
@@ -316,27 +562,29 @@ def breakdown(system, img, card):
     finally:
         trk.opt_pose_ray_dist_sim3 = solve
     iters = solve(*captured["args"])[2]
-    out = {
-        "encode": time_ms(lambda: eng.encode(normed), reps=5, warmup=1),
-        "decode_and_heads": time_ms(lambda: eng.decode_pair(*args), reps=5,
-                                    warmup=1),
-        "match": time_ms(lambda: matching.match(
-            X1, X2, D1, D2, idx0, cfg=eng.match_cfg), reps=5, warmup=1),
-        "gn_solve": time_ms(lambda: solve(*captured["args"]), reps=5,
-                            warmup=1),
-        "track_step": time_ms(lambda: trk.track_step(
-            eng, frame, kf, idx0, system.tracker.cfg), reps=5, warmup=1),
-    }
+
+    def step():
+        return trk.track_step(eng, frame, kf, idx0, system.tracker.cfg)
+
+    stages = {"match": match, "pack": pack,
+              "gn_solve": lambda: solve(*captured["args"]),
+              "track_step": step}
+    if full:
+        stages = {"encode": lambda: eng.encode(normed),
+                  "decode_and_heads": lambda: eng.decode_pair(*args),
+                  **stages}
+    out = {name: time_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
     for name, ms in out.items():
-        note = f" ({iters} GN iterations)" if name == "gn_solve" else ""
-        print(f"stage {name}: {ms:.3f} ms{note} [{card}]")
+        note = {"gn_solve": f" ({iters} GN iterations)",
+                "pack": f" ({len(tables)} tables)"}.get(name, "")
+        print(f"{label} stage {name}: {ms:.3f} ms{note} [{card}]")
     out["gn_iters"] = iters
-    out["device_busy_ms"] = device_busy(
-        lambda: trk.track_step(eng, frame, kf, idx0, system.tracker.cfg))
-    out["idle_share"] = 1.0 - out["device_busy_ms"] / out["track_step"]
-    print(f"track_step: device busy {out['device_busy_ms']:.3f} ms of "
-          f"{out['track_step']:.3f} ms, idle share {out['idle_share']:.3f} "
-          f"[{card}]")
+    if full:
+        out["device_busy_ms"] = device_busy(step)
+        out["idle_share"] = 1.0 - out["device_busy_ms"] / out["track_step"]
+        print(f"{label} track_step: device busy "
+              f"{out['device_busy_ms']:.3f} ms of {out['track_step']:.3f} "
+              f"ms, idle share {out['idle_share']:.3f} [{card}]")
     return out
 
 
@@ -383,34 +631,61 @@ def main(argv=None):
     peak_flops, peak_bw = peaks(name)
 
     t0 = time.perf_counter()
-    logs = _build.build(["attention", "gn"])
+    logs = _build.build(["attention", "gn", "pack"])
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
+    from mast3r_slam_torch.ops.matching import MatchingConfig
+    from mast3r_slam_torch.testing import make_clip
+    from mast3r_slam_torch.utils.config import (apply_reference_exact,
+                                                load_config)
+
+    cfg = load_config("config/base.yaml")       # as written
+    cfg_exact = apply_reference_exact(cfg)
+
     attn = check_attention(peak_flops, peak_bw, card)
     gnt = check_gn(peak_bw, card)
+    packt = check_pack(MatchingConfig.from_dict(cfg["matching"]), peak_bw,
+                       card)
     check_small_model()
-    attn_launches, gn_launches, system = drive_frontend(args.seed, card)
-    from mast3r_slam_torch.testing import make_clip
 
-    stages = breakdown(system, make_clip(args.seed, N_FRAMES + 1, IMG_HW,
-                                         CLIP_SHIFT, CLIP_TEXTURE)[-1], card)
+    engine, mcfg = build_engine(args.seed)
+    frames = make_clip(args.seed, N_FRAMES + 1, IMG_HW, CLIP_SHIFT,
+                       CLIP_TEXTURE)
+    launches, system = drive_frontend(engine, mcfg, cfg, frames[:N_FRAMES],
+                                      card, "production drive")
+    stages = breakdown(system, frames[-1], card, "production")
+    del system
+    _, system_exact = drive_frontend(
+        engine, mcfg, cfg_exact, frames[:N_FRAMES_REFERENCE_EXACT], card,
+        "reference-exact drive")
+    stages_exact = breakdown(system_exact,
+                             frames[N_FRAMES_REFERENCE_EXACT], card,
+                             "reference-exact", full=False)
+    del system_exact
+    ate = drive_oracle(card)
 
     kernels = [
         dict(name="attention", route="cuda",
              source="mast3r_slam_torch/csrc/attention.cu",
              replaces="mast3r_slam_tpu/ops/attention.py:28",
-             launches=attn_launches, **attn["encoder"]),
+             launches=launches["attention"], **attn["encoder"]),
         dict(name="gn_accumulate", route="cuda",
              source="mast3r_slam_torch/csrc/gn.cu",
              replaces="mast3r_slam_tpu/ops/gn_pallas.py:40",
-             launches=gn_launches, **gnt),
+             launches=launches["gn_accumulate"], **gnt),
+        dict(name="pack_rows", route="cuda",
+             source="mast3r_slam_torch/csrc/pack.cu",
+             replaces="mast3r_slam_tpu/ops/pack.py:73",
+             launches=launches["pack_rows"], **packt),
     ]
     print(f"attention decoder shape: {json.dumps(attn['decoder'])}")
     print(f"stages: {json.dumps(stages)}")
+    print(f"stages reference-exact: {json.dumps(stages_exact)}")
+    print(f"oracle ATE (m): {json.dumps(ate)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

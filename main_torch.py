@@ -1,0 +1,308 @@
+#!/usr/bin/env python3
+"""Command-line entry point of the PyTorch + CUDA port's dense SLAM pipeline.
+
+The counterpart of ``main.py``: load a dataset, build the engine and the
+frontend (``mast3r_slam_torch``), loop ``SLAMSystem.process_frame`` over the
+frames, export the keyframe trajectory (TUM format), the point cloud (PLY)
+and the keyframe images, and score ATE against a ground truth.
+
+    python3 main_torch.py --dataset <clip> --config config/base.yaml --no-viz
+
+Runs on the CUDA card unless ``--cpu`` is given.  The flags are ``main.py``'s
+where the module behind them is ported; a flag whose module belongs to a
+later slice of the port exits with one line that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+# flag -> the slice of the port that brings its module
+LATER_SLICES = {
+    "int8_encoder": "int8 encoder slice (models/quant.py)",
+    "int8_local_head": "int8 encoder slice (models/quant.py)",
+    "tp": "multi-GPU slice (tensor-parallel network)",
+    "backend_device": "multi-GPU slice (backend on a second card)",
+    "resume_state": "state and threads slice (save_state / load_state)",
+    "state_out": "state and threads slice (save_state / load_state)",
+    "oracle_desc": "backend slice (pose-warped and desc_global edges)",
+    "oracle_retrieval": "retrieval slice (ASMK database)",
+    "retrieval_checkpoint": "retrieval slice (ASMK database)",
+    "codebook": "retrieval slice (ASMK database)",
+    "viz_port": "viewer slice (live WebGL viewer)",
+    "profile_blocks": "bf16 heads slice (utils/breakdown.py)",
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dataset",
+                   default="datasets/tum/rgbd_dataset_freiburg1_desk")
+    p.add_argument("--config", default="config/base.yaml")
+    p.add_argument("--save-as", default="default")
+    p.add_argument("--no-viz", action="store_true",
+                   help="headless (required: the viewer is a later slice)")
+    p.add_argument("--calib", default="",
+                   help="intrinsics yaml override (config/intrinsics.yaml "
+                        "schema)")
+    p.add_argument("--checkpoint",
+                   default="checkpoints/"
+                           "MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric"
+                           ".pth",
+                   help="torch state dict of the ViT-L network, loaded "
+                        "strictly")
+    p.add_argument("--tiny-model", action="store_true",
+                   help="random tiny model (plumbing smoke runs only)")
+    p.add_argument("--oracle", action="store_true",
+                   help="oracle engine from the clip's oracle.npz "
+                        "(synthetic clips; drives the frontend without "
+                        "checkpoint weights)")
+    p.add_argument("--fp32-head", action="store_true",
+                   help="float32 heads: what the port runs (bf16 head "
+                        "compute, main.py's default, is a later slice)")
+    p.add_argument("--cpu", action="store_true")
+    p.add_argument("--gt", default="", help="TUM-format GT for ATE scoring")
+    p.add_argument("--ate-max-diff", type=float, default=0.01,
+                   help="timestamp association window of the built-in ATE")
+    p.add_argument("--diag-out", default="",
+                   help="per-frame diagnostics JSONL (match_frac, gn_iters, "
+                        "keyframe decisions, pose)")
+    p.add_argument("--profile", action="store_true",
+                   help="section timers (synchronises the device per "
+                        "section)")
+    p.add_argument("--max-frames", type=int, default=0)
+    p.add_argument("--start-frame", type=int, default=0,
+                   help="first (post-subsample) frame index to process")
+    p.add_argument("--reference-exact", action="store_true",
+                   help="full-res matcher walk and per-component Huber: the "
+                        "reference-exact bundle")
+    # flags of main.py whose modules are later slices of the port
+    p.add_argument("--int8-encoder", action="store_true")
+    p.add_argument("--int8-local-head", action="store_true")
+    p.add_argument("--tp", type=int, default=None)
+    p.add_argument("--backend-device", type=int, default=None)
+    p.add_argument("--resume-state", default=None)
+    p.add_argument("--state-out", default=None)
+    p.add_argument("--oracle-desc", action="store_true")
+    p.add_argument("--oracle-retrieval", action="store_true")
+    p.add_argument("--retrieval-checkpoint", default=None)
+    p.add_argument("--codebook", default=None)
+    p.add_argument("--viz-port", type=int, default=None)
+    p.add_argument("--profile-blocks", action="store_true")
+    return p.parse_args(argv)
+
+
+def refuse_later_slices(args):
+    """Exit with one line for a flag whose module is not ported yet."""
+    for name, slice_ in LATER_SLICES.items():
+        value = getattr(args, name)
+        if value is not None and value is not False:
+            sys.exit(f"--{name.replace('_', '-')} is not ported yet: "
+                     f"{slice_}")
+    if not args.no_viz:
+        sys.exit("running without --no-viz is not ported yet: viewer slice "
+                 "(live WebGL viewer)")
+
+
+def load_model(args):
+    """The network of ``--tiny-model`` (seeded random weights) or the ViT-L
+    one with ``--checkpoint`` loaded strictly."""
+    import torch
+
+    from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
+
+    if args.tiny_model:
+        torch.manual_seed(0)
+        return MASt3R(MASt3RConfig.tiny())
+    ckpt = pathlib.Path(args.checkpoint)
+    if not ckpt.exists():
+        sys.exit(f"checkpoint not found: {ckpt}\n"
+                 "Put the MASt3R ViT-L state dict there, or pass "
+                 "--tiny-model or --oracle for a run without weights.")
+    model = MASt3R(MASt3RConfig.vit_large())
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+    model.load_state_dict(sd.get("model", sd), strict=True)
+    return model
+
+
+def run(system, dataset, args):
+    """The frame loop (main.py:288-358) as a function of the system, a
+    dataset (``len``, ``dataset[i] -> (timestamp, image)``) and the parsed
+    arguments (``max_frames``, ``start_frame``, ``diag_out``).  The next
+    frame's host work (read, undistort, resize, normalise) runs on one
+    prefetch thread while the device works on the current one.  Stops when
+    the tracker loses the map: relocalization is a later slice.  Returns
+    the run's summary."""
+    n = len(dataset)
+    if args.max_frames:
+        n = min(n, args.max_frames)
+    i0 = max(int(args.start_frame), 0)
+    system.diag = bool(args.diag_out)
+
+    def load(idx):
+        ts, raw = dataset[idx]
+        return ts, system.prepare_image(raw)
+
+    lost_at = None
+    done = 0
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=1) as prefetch:
+        diag_f = None
+        if args.diag_out:
+            dp = pathlib.Path(args.diag_out)
+            dp.parent.mkdir(parents=True, exist_ok=True)
+            diag_f = open(dp, "w")
+        try:
+            fut = prefetch.submit(load, i0) if i0 < n else None
+            for i in range(i0, n):
+                timestamp, prepared = fut.result()
+                if i + 1 < n:
+                    fut = prefetch.submit(load, i + 1)
+                info = system.process_frame(i, prepared)
+                done += 1
+                if diag_f is not None:
+                    info["i"] = i
+                    info["ts"] = float(timestamp)
+                    diag_f.write(json.dumps(info) + "\n")
+                if system.mode.name == "RELOC":
+                    lost_at = i
+                    print(f"[lost] tracking lost at frame {i}; "
+                          f"relocalization is a later slice of the port")
+                    break
+                if i % 30 == 0 and i > 0:
+                    print(f"FPS: {done / (time.time() - t0):.2f}  "
+                          f"mode={info['mode']} "
+                          f"kf={system.stats['keyframes']}")
+        finally:
+            if diag_f is not None:
+                diag_f.close()
+    system.terminate()
+    wall = time.time() - t0
+    trk = system.tracker
+    return {
+        "frames": done,
+        "seconds": wall,
+        "fps": done / max(wall, 1e-9),
+        "lost_at": lost_at,
+        "stats": dict(system.stats),
+        "kf_rate": system.stats["keyframes"] / max(done, 1),
+        "mean_gn_iters": trk.gn_iters_total / max(trk.gn_frames, 1),
+    }
+
+
+def export(system, dataset, args):
+    """Trajectory, reconstruction and keyframes under ``logs/`` and, with
+    ``--gt``, the ATE (main.py:416-429).  Returns the ATE or None."""
+    from mast3r_slam_torch import evaluate
+
+    save_dir, seq_name = evaluate.prepare_savedir(args.save_as, dataset)
+    evaluate.save_traj(save_dir, f"{seq_name}.txt", dataset.timestamps,
+                       system.arena)
+    evaluate.save_reconstruction(save_dir, f"{seq_name}.ply", system.arena,
+                                 1.5, K=system.K)
+    evaluate.save_keyframes(save_dir / "keyframes" / seq_name,
+                            dataset.timestamps, system.arena)
+    print(f"results: {save_dir}/{seq_name}.txt, .ply")
+    if not args.gt:
+        return None
+    ate = evaluate.ate_rmse(args.gt, save_dir / f"{seq_name}.txt",
+                            max_diff=args.ate_max_diff)
+    print(f"ATE RMSE (Sim3-aligned): {ate:.4f} m")
+    return ate
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_later_slices(args)
+
+    import torch
+    import yaml
+
+    from mast3r_slam_torch.dataloader import Intrinsics, load_dataset
+    from mast3r_slam_torch.inference import InferenceEngine
+    from mast3r_slam_torch.ops.matching import MatchingConfig
+    from mast3r_slam_torch.pipeline import SLAMSystem
+    from mast3r_slam_torch.utils.config import (apply_reference_exact,
+                                                load_config)
+    from mast3r_slam_torch.utils.profiler import TimeProfiler
+
+    device = "cpu" if args.cpu else "cuda"
+    config = load_config(args.config)
+    if args.reference_exact:
+        config = apply_reference_exact(config)
+    if args.calib:
+        config["use_calib"] = True
+    print(f"dataset: {args.dataset}")
+    print(f"device: {device}" + (
+        f" ({torch.cuda.get_device_name(0)})"
+        if device == "cuda" and torch.cuda.is_available() else ""))
+
+    dataset = load_dataset(args.dataset, config)
+    dataset.subsample(config["dataset"]["subsample"])
+    (h, w), _ = dataset.get_img_shape()
+
+    if args.calib:
+        with open(args.calib) as f:
+            intr = yaml.safe_load(f)
+        dataset.use_calibration = True
+        dataset.camera_intrinsics = Intrinsics.from_calib(
+            config, dataset.img_size, intr["width"], intr["height"],
+            intr["calibration"])
+
+    use_calib = bool(config["use_calib"])
+    if use_calib and not dataset.has_calib():
+        sys.exit("[error] use_calib=True but no calibration available")
+    K = dataset.camera_intrinsics.K_frame if use_calib else None
+
+    if args.oracle:
+        from mast3r_slam_torch.testing import OracleEngine, SyntheticSequence
+
+        seq = SyntheticSequence.load(
+            pathlib.Path(args.dataset) / "oracle.npz")
+        sub = int(config["dataset"]["subsample"])
+        seq.X_cam = seq.X_cam[::sub]
+        seq.X_world = seq.X_world[::sub]
+        seq.T_WC = seq.T_WC[::sub]
+        h, w = seq.h, seq.w
+        config["dataset"]["img_size"] = max(h, w)
+        engine = OracleEngine(seq, device=device)
+        # the oracle carries frame identity in an encode-call counter:
+        # align it with the first processed frame
+        engine._encode_counter = max(int(args.start_frame), 0)
+        K = seq.K if use_calib else None
+    else:
+        if not args.fp32_head:
+            print("[note] the heads run in float32; bf16 head compute is a "
+                  "later slice of the port")
+        engine = InferenceEngine(
+            load_model(args), (h, w),
+            downsample=int(config["dataset"].get("img_downsample", 1)),
+            match_cfg=MatchingConfig.from_dict(config["matching"]),
+            device=device)
+    print("[note] retrieval, the backend and relocalization are later "
+          "slices of the port: frontend only, no loop closure")
+
+    profiler = TimeProfiler(enabled=args.profile)
+    system = SLAMSystem(config, engine, (h, w), K=K, device=device,
+                        profiler=profiler)
+    summary = run(system, dataset, args)
+    print(f"done: {summary['frames']} frames in {summary['seconds']:.1f}s "
+          f"({summary['fps']:.2f} FPS)")
+    print(f"stats: {summary['stats']}")
+    print(f"rates: kf_rate {summary['kf_rate']:.4f} mean_gn_iters "
+          f"{summary['mean_gn_iters']:.2f}")
+
+    if getattr(dataset, "save_results", True):
+        export(system, dataset, args)
+    if args.profile:
+        profiler.print_summary()
+    return 3 if summary["lost_at"] is not None else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

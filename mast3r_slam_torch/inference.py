@@ -22,8 +22,13 @@ class InferenceEngine:
     (inference.py:30).  ``img_hw`` is fixed per run."""
 
     def __init__(self, model: MASt3R, img_hw: Tuple[int, int],
+                 downsample: int = 1,
                  match_cfg: matching.MatchingConfig | None = None,
                  device="cuda"):
+        if downsample != 1:
+            raise NotImplementedError(
+                f"dataset.img_downsample={downsample} is not ported (the "
+                f"port runs 1, as every shipped config does)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # The heads compute in f32 (the reference's autocast policy);
@@ -65,21 +70,33 @@ class InferenceEngine:
     @torch.no_grad()
     def match_asymmetric(self, frame_feat, frame_pos, kf_feat, kf_pos,
                          idx_i2j_init=None):
-        """Asymmetric decode + dense match (inference.py:177-215).  Returns
+        """Asymmetric decode + dense match, exporting the q8 descriptor
+        tables (inference.py:217, ``_match_asymmetric_desc_impl``).  Returns
         (idx_f2k (1, hw), valid_match (1, hw, 1), Xff, Cff, Qff, Xkf, Ckf,
-        Qkf) with pointmaps flattened to (1, hw, ...)."""
+        Qkf, desc8_frame, desc8_kf) with pointmaps flattened to
+        (1, hw, ...).  The descriptors are quantised here, outside
+        ``match``, which takes the int8 arrays as they are; the two
+        (1, hw, f) int8 tables ride along for the backend's consecutive
+        edge (None when the matcher does not run on int8 tables)."""
         (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = self.decode_pair(
             frame_feat, frame_pos, kf_feat, kf_pos)
+        b = Xii.shape[0]
+        desc8 = (None, None)
+        if self.match_cfg.desc_bits == 8 and self.match_cfg.radius > 0:
+            D8f, D8k = matching._q8_pair(
+                Dii, Dji.reshape(b, -1, Dji.shape[-1]),
+                self.match_cfg.desc_prenorm)
+            desc8 = (D8f.reshape(b, -1, D8f.shape[-1]), D8k)
+            Dii, Dji = D8f, D8k.reshape(Dji.shape)
         idx_i2j, valid_match_j = matching.match(
             Xii, Xji, Dii, Dji, idx_1_to_2_init=idx_i2j_init,
             cfg=self.match_cfg)
-        b = Xii.shape[0]
 
         def flat(A):
             return A.reshape(b, -1, A.shape[-1] if A.dim() == 4 else 1)
 
         return (idx_i2j, valid_match_j, flat(Xii), flat(Cii), flat(Qii),
-                flat(Xji), flat(Cji), flat(Qji))
+                flat(Xji), flat(Cji), flat(Qji), *desc8)
 
 
 # ---------------------------------------------------------------------------
@@ -90,11 +107,14 @@ IMGNORM_MEAN = np.array([0.5, 0.5, 0.5], dtype=np.float32)
 IMGNORM_STD = np.array([0.5, 0.5, 0.5], dtype=np.float32)
 
 
-def resize_img(img: np.ndarray, size: int = 512):
+def resize_img(img: np.ndarray, size: int = 512,
+               return_transformation: bool = False):
     """Resize the long side to ``size`` and centre-crop H, W to multiples of
     16 (inference.py:392; 224 square mode included).  img: (H, W, 3) uint8
     or float in [0, 1].  Returns dict(img (1, h, w, 3) normalised,
-    true_shape (1, 2), unnormalized_img, unnormalized_img_u8)."""
+    true_shape (1, 2), unnormalized_img, unnormalized_img_u8), and with
+    ``return_transformation`` also (scale_w, scale_h, half_crop_w,
+    half_crop_h), which carry intrinsics to the network frame."""
     from PIL import Image
 
     if size not in (224, 512):
@@ -127,9 +147,13 @@ def resize_img(img: np.ndarray, size: int = 512):
         pil = pil.crop((cx - halfw, cy - halfh, cx + halfw, cy + halfh))
 
     arr8 = np.asarray(pil)
-    return {
+    res = {
         "img": (arr8.astype(np.float32) * (1.0 / 127.5) - 1.0)[None],
         "true_shape": np.int32([pil.size[::-1]]),
         "unnormalized_img": arr8.astype(np.float32) * (1.0 / 255.0),
         "unnormalized_img_u8": arr8,
     }
+    if return_transformation:
+        return res, (W1 / W, H1 / H, (W - pil.size[0]) / 2,
+                     (H - pil.size[1]) / 2)
+    return res

@@ -2,9 +2,10 @@
 
 Mirrors the frontend of ``mast3r_slam_tpu/pipeline.py`` (prepare_image,
 create_frame and process_frame, pipeline.py:303-433) with the same
-keyframe decisions.  The backend (factor graph, BA, retrieval) and
-relocalization come in later slices: nothing is queued for a backend, and
-``process_frame`` in RELOC raises.
+keyframe decisions, in the uncalibrated and the calibrated mode.  The
+backend (factor graph, BA, retrieval) and relocalization come in later
+slices: nothing is queued for a backend, ``terminate`` has no thread to
+join, and ``process_frame`` in RELOC raises.
 """
 
 from __future__ import annotations
@@ -27,14 +28,20 @@ from .frame import (
 from .inference import IMGNORM_MEAN, IMGNORM_STD, resize_img
 from .ops import lie_sim3 as sim3
 from .tracker import FrameTracker, TrackerConfig
+from .utils.profiler import TimeProfiler
 
 
 class SLAMSystem:
     """Frontend around one inference engine and one keyframe arena
     (pipeline.py:59)."""
 
-    def __init__(self, cfg: dict, engine, img_hw, buffer: int | None = None,
-                 device="cuda"):
+    def __init__(self, cfg: dict, engine, img_hw, K=None,
+                 buffer: int | None = None, device="cuda",
+                 profiler: TimeProfiler | None = None):
+        """``engine`` is an ``InferenceEngine`` or any object with its
+        interface (the oracle harness of ``testing``).  ``K`` (3, 3) selects
+        the calibrated mode, as in JAX; ``cfg["use_calib"]`` must agree.
+        ``profiler`` times the sections when it is enabled."""
         self.device = resolve_device(device)
         if engine.device != self.device:
             raise ValueError(f"engine runs on {engine.device}, the system "
@@ -44,7 +51,17 @@ class SLAMSystem:
         h, w = self.img_hw
         self.img_size = int(cfg["dataset"].get("img_size", 512))
         self.engine = engine
-        self.tracker = FrameTracker(engine, TrackerConfig.from_config(cfg))
+        self.use_calib = K is not None
+        if self.use_calib != bool(cfg.get("use_calib", False)):
+            raise ValueError(
+                f"use_calib={cfg.get('use_calib', False)} in the config but "
+                f"K is {'given' if self.use_calib else 'missing'}")
+        self.K = None if K is None else torch.as_tensor(
+            np.asarray(K), dtype=torch.float32).to(self.device)
+        self.tracker = FrameTracker(engine, TrackerConfig.from_config(cfg),
+                                    self.K)
+        self.profiler = profiler or TimeProfiler()
+        self.diag = False   # per-frame pose in the info dict
         buffer = buffer or int(cfg.get("map", {}).get("buffer", 512))
         self.arena: KeyframeArena = make_arena(
             buffer, h, w, engine.n_patches, engine.feat_dim, self.device)
@@ -73,10 +90,13 @@ class SLAMSystem:
         """Image -> frame on the device with its encoder features
         (pipeline.py:325).  ``img`` is a raw image or a prepared
         (normed, uimg) pair."""
-        normed, uimg = img if isinstance(img, tuple) else \
-            self.prepare_image(img)
         dev = self.device
-        feat, pos = self.engine.encode(torch.from_numpy(normed)[None].to(dev))
+        with self.profiler.timer("create_frame"):
+            normed, uimg = img if isinstance(img, tuple) else \
+                self.prepare_image(img)
+            device_img = torch.from_numpy(normed)[None].to(dev)
+        with self.profiler.timer("vit_encode"):
+            feat, pos = self.engine.encode(device_img)
         hw = self.img_hw[0] * self.img_hw[1]
         return Frame(
             frame_id=torch.tensor(i, dtype=torch.int32, device=dev),
@@ -99,8 +119,9 @@ class SLAMSystem:
         info = {"mode": self.mode.name, "new_kf": False}
 
         if self.mode == Mode.INIT:
-            X, C = self.engine.inference_mono(frame.feat[None],
-                                              frame.pos[None])
+            with self.profiler.timer("decoder"):
+                X, C = self.engine.inference_mono(frame.feat[None],
+                                                  frame.pos[None])
             frame = update_pointmap(frame, X[0], C[0], self.filtering_mode,
                                     self._median_score)
             arena_append(self.arena, frame)
@@ -112,7 +133,8 @@ class SLAMSystem:
         if self.mode == Mode.TRACKING:
             last = self.arena.n_size - 1
             kf = arena_get(self.arena, last)
-            new_kf, frame, kf, try_reloc = self.tracker.track(frame, kf)
+            with self.profiler.timer("track"):
+                new_kf, frame, kf, try_reloc = self.tracker.track(frame, kf)
             info.update(self.tracker.last_diag)
             if try_reloc:
                 self.mode = Mode.RELOC
@@ -122,6 +144,9 @@ class SLAMSystem:
             arena_set(self.arena, last, kf)
             self.stats["tracked"] += 1
             self.last_T_WC = frame.T_WC
+            if self.diag:
+                info["T_WC"] = [round(float(x), 6)
+                                for x in frame.T_WC.cpu().ravel()]
             if new_kf:
                 arena_append(self.arena, frame)
                 self.stats["keyframes"] += 1
@@ -129,3 +154,8 @@ class SLAMSystem:
             return info
 
         raise RuntimeError(f"invalid mode {self.mode}")
+
+    def terminate(self):
+        """End of the run (pipeline.py:830): the frontend has no backend
+        queue to drain."""
+        self.mode = Mode.TERMINATED

@@ -2,17 +2,24 @@
 
 The role of ``mast3r_slam_tpu/testing.py``: no published weights or clips
 are in the repository, so the tests and ``chip_smoke.py`` drive the real
-network with seeded random weights on frames made with numpy.
+network with seeded random weights on frames made with numpy, and drive the
+whole frontend against a known trajectory with the synthetic-scene harness
+(``SyntheticSequence`` + ``OracleEngine``, testing.py:25-402, rendered in
+numpy with the poses as torch tensors).  The oracle's ``match_symmetric``
+and ``make_oracle_retrieval`` belong to the backend and retrieval and are
+not ported.
 """
 
 from __future__ import annotations
 
+import pathlib
+
 import numpy as np
 import torch
-from PIL import Image, ImageFilter
 
 from .ops import gn
 from .ops import lie_sim3 as sim3
+from .ops.geometry import get_pixel_coords
 
 # kernel B's sums against its plain version, entry by entry (gn_sums_check)
 GN_RTOL, GN_FLOOR = 1e-4, 1e-5
@@ -23,6 +30,8 @@ def make_clip(seed: int, n: int, hw, shift: int = 1,
     """``n`` uint8 (h, w, 3) frames cut from one image, each ``shift``
     pixels right of the last: red ramps left to right, green top to bottom,
     plus a ``texture`` share of blurred seeded noise."""
+    from PIL import Image, ImageFilter
+
     h, w = hw
     H, W = h + 16, w + shift * n + 16
     rng = np.random.default_rng(seed)
@@ -119,3 +128,339 @@ def gn_sums_check(sums, terms, rtol: float = GN_RTOL,
     plain = terms.sum(dim=1)
     tol = rtol * plain.abs() + floor * terms.abs().sum(dim=1)
     return (sums - plain).abs().cpu(), tol.cpu()
+
+
+# ---------------------------------------------------------------------------
+# Synthetic scene: renderer, clip with ground truth, oracle engine
+# ---------------------------------------------------------------------------
+
+def surface_z(x, y, scene: str = "smooth"):
+    """World surface height field (testing.py:25): ``smooth``, or ``cliff``
+    with a ~1.2 m step along a curved line."""
+    z = 4.0 + 0.6 * np.sin(1.3 * x) * np.cos(1.1 * y)
+    if scene == "cliff":
+        z = z - 1.2 * (np.sin(0.9 * x + 0.7 * y) > 0.2)
+    return z
+
+
+# floating occluder slab (scene "occluder"): plane z = OCC_Z over a disk
+OCC_Z = 2.6
+OCC_CENTER = (0.4, -0.3)
+OCC_R = 0.9
+
+
+def occluder_mask(x, y):
+    cx, cy = OCC_CENTER
+    return (x - cx) ** 2 + (y - cy) ** 2 < OCC_R ** 2
+
+
+def texture(x, y, fg=False):
+    """Smooth RGB texture on the surface, with a shifted palette on the
+    occluder (testing.py:52)."""
+    s = 2.4 if fg else 0.0
+    r = 0.5 + 0.5 * np.sin(2.0 * x + s)
+    g = 0.5 + 0.5 * np.cos(1.7 * y - s)
+    b = 0.5 + 0.5 * np.sin(1.1 * (x + y) + s)
+    return np.stack([r, g, b], axis=-1)
+
+
+def make_K(h, w):
+    return np.array(
+        [[0.8 * w, 0, w / 2], [0, 0.8 * w, h / 2], [0, 0, 1]],
+        dtype=np.float32)
+
+
+def render_view(T_WC, h, w, K, scene: str = "smooth"):
+    """Ray-march the surface from a camera pose (8,) (testing.py:69).
+    Returns (rgb (h, w, 3) in [0, 1], X_cam (h*w, 3) pointmap in camera
+    coordinates, X_world (h*w, 3)), all numpy f32."""
+    Kinv = np.linalg.inv(K)
+    uv = get_pixel_coords(1, (h, w)).reshape(-1, 2).numpy()
+    dirs = (Kinv @ np.concatenate(
+        [uv, np.ones((h * w, 1), np.float32)], axis=1).T).T
+    T_t = torch.as_tensor(T_WC, dtype=torch.float32)
+    T = T_t.numpy()
+    t = T[:3]
+    Rm = np.array([[float(e) for e in row]
+                   for row in sim3.quat_rot_entries(T_t[3:7])], np.float32)
+    d_w = (Rm @ dirs.T).T
+    bg = "cliff" if scene == "cliff" else "smooth"
+    lam = np.full(h * w, 3.0, np.float64)
+    for _ in range(60):
+        Xw = t[None] + lam[:, None] * d_w
+        lam = lam + (surface_z(Xw[:, 0], Xw[:, 1], bg) - Xw[:, 2]) \
+            / d_w[:, 2]
+    Xw = (t[None] + lam[:, None] * d_w).astype(np.float32)
+    rgb = texture(Xw[:, 0], Xw[:, 1]).reshape(-1, 3)
+    if scene == "occluder":
+        # ray/plane hit on the slab; takes precedence when closer
+        with np.errstate(divide="ignore", invalid="ignore"):
+            lam_fg = (OCC_Z - t[2]) / d_w[:, 2]
+        Xf = t[None] + lam_fg[:, None] * d_w
+        hit = (np.isfinite(lam_fg) & (lam_fg > 0.05) & (lam_fg < lam)
+               & occluder_mask(Xf[:, 0], Xf[:, 1]))
+        Xw = np.where(hit[:, None], Xf.astype(np.float32), Xw)
+        rgb = np.where(hit[:, None], texture(Xf[:, 0], Xf[:, 1], fg=True),
+                       rgb)
+    Xc = sim3.act(sim3.inv(T_t), torch.from_numpy(Xw)).numpy()
+    return rgb.reshape(h, w, 3).astype(np.float32), Xc, Xw
+
+
+def world_descriptors(X_world, f: int = 24, base_wavelength: float = 0.35,
+                      geometric: bool = False):
+    """View-invariant, locally discriminative unit descriptors:
+    multi-frequency positional encodings of the world surface coordinates
+    (testing.py:108).  ``geometric`` uses an octave ladder over x, y and z
+    whose longest period spans the scene, so the descriptors are globally
+    unique."""
+    x, y = X_world[:, 0], X_world[:, 1]
+    feats = []
+    if geometric:
+        z = X_world[:, 2]
+        n_oct = f // 6
+        top = max(12.0, 32.0 * base_wavelength)
+        ratio = (top / base_wavelength) ** (1.0 / max(n_oct - 1, 1))
+        for k in range(n_oct):
+            freq = 2 * np.pi / (base_wavelength * (ratio ** k))
+            feats += [np.sin(freq * x), np.cos(freq * x),
+                      np.sin(freq * y), np.cos(freq * y),
+                      np.sin(freq * z), np.cos(freq * z)]
+    else:
+        n_oct = f // 4
+        for k in range(n_oct):
+            freq = 2 * np.pi / (base_wavelength * n_oct / (k + 1))
+            feats += [np.sin(freq * x), np.cos(freq * x),
+                      np.sin(freq * y), np.cos(freq * y)]
+    D = np.stack(feats, axis=-1).astype(np.float32)
+    D /= np.linalg.norm(D, axis=-1, keepdims=True)
+    return D
+
+
+def make_trajectory(n_frames: int, scale: float = 0.02, seed: int = 0,
+                    loop: bool = False, cycles: int = 1):
+    """Smooth bounded Sim(3) trajectory (n_frames, 8), first pose the
+    identity (testing.py:159): a multi-frequency sinusoidal path whose
+    per-frame motion stays ~``scale`` per dof.  ``loop`` closes the path;
+    ``cycles`` sweeps the scene that many times at the same per-frame
+    motion."""
+    rng = np.random.default_rng(seed)
+    amp = scale * n_frames / (2 * np.pi * max(cycles, 1))
+    a = amp * np.array([1.0, 0.8, 0.6, 0.25, 0.25, 0.25, 0.08])
+    phase = rng.uniform(0, 2 * np.pi, 7)
+    freq = np.where(np.arange(7) % 2 == 0, 1.0, 2.0) * max(cycles, 1)
+    if loop:
+        freq = np.round(freq)  # integer cycles -> closed path
+    ts = np.arange(n_frames) / max(n_frames - 1, 1)
+    theta = 2 * np.pi * ts[:, None] * freq[None, :] + phase[None, :]
+    xs = a[None, :] * (np.sin(theta) - np.sin(phase)[None, :])
+    return sim3.exp(torch.from_numpy(xs.astype(np.float32)))
+
+
+class SyntheticSequence:
+    """Rendered clip with ground truth, presented like a dataset
+    (testing.py:188).  ``save`` / ``load`` use the JAX package's ``.npz``
+    layout, so either package reads a clip the other wrote."""
+
+    def __init__(self, n_frames=20, h=48, w=64, seed=0, traj_scale=0.02,
+                 loop=False, scene="smooth", cycles=1):
+        self.h, self.w = h, w
+        self.K = make_K(h, w)
+        self.scene = scene
+        self.T_WC = make_trajectory(n_frames, traj_scale, seed, loop, cycles)
+        self.images, self.X_cam, self.X_world = [], [], []
+        for i in range(n_frames):
+            rgb, Xc, Xw = render_view(self.T_WC[i], h, w, self.K, scene)
+            self.images.append(rgb)
+            self.X_cam.append(Xc)
+            self.X_world.append(Xw)
+        self.timestamps = [float(i) / 30.0 for i in range(n_frames)]
+
+    def __len__(self):
+        return len(self.X_cam)
+
+    def save(self, path):
+        """The ground-truth geometry as one ``.npz``, from which
+        ``OracleEngine`` can be driven."""
+        np.savez_compressed(
+            path,
+            T_WC=self.T_WC.numpy(),
+            X_cam=np.stack(self.X_cam),
+            X_world=np.stack(self.X_world),
+            K=self.K, h=self.h, w=self.w,
+            timestamps=np.asarray(self.timestamps),
+        )
+
+    @classmethod
+    def load(cls, path):
+        d = np.load(path)
+        obj = cls.__new__(cls)
+        obj.h, obj.w = int(d["h"]), int(d["w"])
+        obj.K = d["K"]
+        obj.T_WC = torch.from_numpy(np.asarray(d["T_WC"], np.float32))
+        obj.X_cam = list(d["X_cam"])
+        obj.X_world = list(d["X_world"])
+        obj.images = []
+        obj.timestamps = list(d["timestamps"])
+        return obj
+
+    def write_gt(self, path):
+        """TUM-format ground-truth trajectory."""
+        T = self.T_WC.numpy()
+        q = T[:, 3:7]
+        q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+        with open(path, "w") as f:
+            for i in range(len(T)):
+                x, y, z = T[i, :3]
+                qx, qy, qz, qw = q[i]
+                f.write(f"{self.timestamps[i]} {x} {y} {z} "
+                        f"{qx} {qy} {qz} {qw}\n")
+
+
+def write_clip(seq: SyntheticSequence, out_dir):
+    """A rendered sequence as a clip folder that ``dataloader.load_dataset``
+    and ``main_torch.py --oracle`` read: ``NNNNNN.png`` frames, ``gt.txt``
+    (TUM format), ``oracle.npz`` and ``calibration.txt`` (fx fy cx cy), the
+    layout of ``scripts/make_synthetic_clip.py``."""
+    from PIL import Image
+
+    out = pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(seq.images):
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            out / f"{i:06d}.png")
+    seq.write_gt(out / "gt.txt")
+    seq.save(out / "oracle.npz")
+    K = seq.K
+    np.savetxt(out / "calibration.txt",
+               [K[0, 0], K[1, 1], K[0, 2], K[1, 2]], fmt="%.6f")
+
+
+class ClipDataset:
+    """Frames held in memory, presented like a ``dataloader`` dataset:
+    ``dataset[i] -> (timestamp, image)``, 30 frames a second."""
+
+    def __init__(self, frames, name: str = "clip"):
+        self.frames = list(frames)
+        self.timestamps = [i / 30.0 for i in range(len(self.frames))]
+        self.dataset_path = pathlib.Path(name)
+        self.save_results = True
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, idx):
+        return self.timestamps[idx], self.frames[idx]
+
+
+class OracleEngine:
+    """Stands in for ``InferenceEngine`` with decode outputs made from the
+    synthetic ground truth (testing.py:249).
+
+    Frame identity is carried through the ``feat`` tensor: feat[0, 0] holds
+    the frame index.  ``noise_std`` perturbs the pointmaps to emulate
+    network error.  Outputs are tensors on ``device``.
+    """
+
+    N_PATCHES = 16
+    FEAT_DIM = 32
+
+    def __init__(self, seq: SyntheticSequence, noise_std: float = 0.0,
+                 match_noise_px: int = 0, seed: int = 0,
+                 blackout_frames=(), device="cuda"):
+        from .device import resolve_device
+
+        self.device = resolve_device(device)
+        self.seq = seq
+        self.h, self.w = seq.h, seq.w
+        self.hw = self.h * self.w
+        self.noise_std = noise_std
+        self.match_noise_px = match_noise_px
+        self.rng = np.random.default_rng(seed)
+        self._encode_counter = 0
+        self.img_hw = (self.h, self.w)
+        self.n_patches = self.N_PATCHES
+        self.feat_dim = self.FEAT_DIM
+        # frames whose matches are wiped (tracking-failure injection)
+        self.blackout_frames = set(blackout_frames)
+
+    def _t(self, a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def view_signature(self, i):
+        """Content-based coarse view descriptor: subsampled world points."""
+        Xw = self.seq.X_world[i]
+        n = self.N_PATCHES * self.FEAT_DIM
+        stride = max(1, (len(Xw) * 3) // n)
+        flat = Xw.reshape(-1)[::stride][:n]
+        sig = np.zeros(n, np.float32)
+        sig[: len(flat)] = flat
+        return sig.reshape(self.N_PATCHES, self.FEAT_DIM)
+
+    def encode(self, img):
+        i = self._encode_counter
+        self._encode_counter += 1
+        feat = self.view_signature(i).copy()
+        feat[0, 0] = i  # frame identity channel, read by the oracle matcher
+        return (self._t(feat[None]),
+                torch.zeros((1, self.N_PATCHES, 2), dtype=torch.int64,
+                            device=self.device))
+
+    def _pointmap(self, i):
+        X = self.seq.X_cam[i]
+        if self.noise_std > 0:
+            X = X + self.rng.normal(0, self.noise_std, X.shape) \
+                .astype(np.float32)
+        return X
+
+    def _rel_pointmap(self, i, j):
+        """Pointmap of camera j's pixels expressed in camera i's frame."""
+        T_CiCj = sim3.rel(self.seq.T_WC[i], self.seq.T_WC[j])
+        return sim3.act(T_CiCj, torch.from_numpy(self._pointmap(j))).numpy()
+
+    def _match(self, i, j):
+        """idx mapping camera-j pixels -> camera-i pixel indices through the
+        true projection (with optional pixel noise), plus validity.  A
+        projected point whose target pixel sees other geometry (an
+        occlusion) is invalid, like the matcher's 3D-distance gate."""
+        Xc_i = sim3.act(sim3.inv(self.seq.T_WC[i]),
+                        torch.from_numpy(self.seq.X_world[j])).numpy()
+        uvz = (self.seq.K @ Xc_i.T).T
+        u = np.round(uvz[:, 0] / uvz[:, 2]).astype(np.int64)
+        v = np.round(uvz[:, 1] / uvz[:, 2]).astype(np.int64)
+        if self.match_noise_px:
+            u += self.rng.integers(-self.match_noise_px,
+                                   self.match_noise_px + 1, u.shape)
+            v += self.rng.integers(-self.match_noise_px,
+                                   self.match_noise_px + 1, v.shape)
+        inside = (u >= 0) & (u < self.w) & (v >= 0) & (v < self.h) \
+            & (Xc_i[:, 2] > 0)
+        idx = np.where(inside, v * self.w + u, 0).astype(np.int64)
+        seen = self.seq.X_world[i][idx]
+        d3 = np.linalg.norm(seen - self.seq.X_world[j], axis=-1)
+        pix = np.linalg.norm(self.seq.X_cam[i][idx], axis=-1) / max(
+            float(self.seq.K[0, 0]), 1.0)  # ~1-pixel 3D footprint
+        inside &= d3 < np.maximum(0.1, 3.0 * pix)
+        return idx, inside
+
+    @staticmethod
+    def _fid(feat):
+        return int(feat[0, 0, 0])
+
+    def match_asymmetric(self, frame_feat, frame_pos, kf_feat, kf_pos,
+                         idx_i2j_init=None):
+        fi = self._fid(frame_feat)
+        ki = self._fid(kf_feat)
+        Xff = self._pointmap(fi)
+        Xkf = self._rel_pointmap(fi, ki)  # kf points in frame coordinates
+        idx, inside = self._match(fi, ki)
+        if fi in self.blackout_frames:
+            inside = np.zeros_like(inside)
+        ones = torch.ones((1, self.hw, 1), device=self.device)
+        return (self._t(idx[None]), self._t(inside[None, :, None]),
+                self._t(Xff[None]), 10.0 * ones, 4.0 * ones,
+                self._t(Xkf[None]), 10.0 * ones, 4.0 * ones)
+
+    def inference_mono(self, feat, pos):
+        X = self._pointmap(self._fid(feat))
+        return (self._t(X[None]),
+                torch.full((1, self.hw, 1), 10.0, device=self.device))

@@ -1,13 +1,17 @@
 """Frame tracker: two-view registration against the last keyframe.
 
-Mirrors ``mast3r_slam_tpu/tracker.py`` for the uncalibrated ray+distance
-solve under the production joint ray Huber weight.  The JAX version runs
-the GN loop as a device ``while_loop``; here it is a Python loop with one
-host sync per iteration for the convergence test, the reference's own
-``.item()`` cadence.  Each iteration's normal equations come from
-``ops.gn.gn_accumulate`` (the CUDA kernel on the card, its plain closed
-form on the CPU); the 7x7 solve, retraction and convergence test then run
-on the host in f32, on the sums the sync has already brought over.
+Mirrors ``mast3r_slam_tpu/tracker.py``: the uncalibrated ray+distance solve
+(under the production joint ray Huber weight, or the reference-exact
+per-component weights) and the calibrated pixel + log-depth solve.  The JAX
+version runs the GN loop as a device ``while_loop``; here it is a Python
+loop with one host sync per iteration for the convergence test, the
+reference's own ``.item()`` cadence.  Under ``joint_ray_huber`` each
+iteration's normal equations come from ``ops.gn.gn_accumulate`` (the CUDA
+kernel on the card, its plain closed form on the CPU); the other two bodies
+expand the whitened Jacobian rows on the points' device and reduce them
+with one matrix product, as in JAX.  The 7x7 solve, retraction and
+convergence test then run on the host in f32, on the sums the sync has
+already brought over.
 """
 
 from __future__ import annotations
@@ -20,18 +24,18 @@ import torch
 from .frame import FilteringMode, Frame, update_pointmap
 from .ops import gn
 from .ops import lie_sim3 as sim3
-from .ops.robust import check_convergence, solve_spd_small
-
-# Knobs of the JAX TrackerConfig that the port runs only at these values.
-_PORTED_ONLY = {
-    ("tracking", "joint_ray_huber"): True,
-    ("tracking", "point_subsample"): 1,
-    (None, "use_calib"): False,
-}
+from .ops.geometry import (
+    constrain_points_to_ray,
+    get_pixel_coords,
+    point_to_ray_dist,
+    project_calib,
+)
+from .ops.robust import check_convergence, huber, solve_spd_small
 
 
 class TrackerConfig(NamedTuple):
-    """Tracking parameters of the ray+distance solve (tracker.py:35)."""
+    """Tracking parameters, field for field the JAX ``TrackerConfig``
+    (tracker.py:35)."""
     min_match_frac: float = 0.05
     max_iters: int = 50
     C_conf: float = 0.0
@@ -42,23 +46,23 @@ class TrackerConfig(NamedTuple):
     match_frac_thresh: float = 0.333
     sigma_ray: float = 0.003
     sigma_dist: float = 10.0
+    sigma_pixel: float = 1.0
+    sigma_depth: float = 10.0
+    pixel_border: int = -10
+    depth_eps: float = 1e-6
     filtering_mode: int = int(FilteringMode.WEIGHTED_POINTMAP)
     use_median_score: bool = True
+    use_calib: bool = False
+    # one Huber weight per point from the whitened ray-error norm (the
+    # closed form of ops.gn); False = per-component weights
+    joint_ray_huber: bool = True
+    # grid stride of the points fed to the GN solve (1 = all pixels)
+    point_subsample: int = 1
 
     @classmethod
     def from_config(cls, cfg: dict) -> "TrackerConfig":
-        """From a whole config dict (tracker.py:70).  Raises
-        ``NotImplementedError`` naming any knob set to a value this slice
-        does not run."""
+        """From a whole config dict (tracker.py:70)."""
         t = cfg["tracking"]
-        for (block, knob), ported in _PORTED_ONLY.items():
-            src = t if block else cfg
-            val = src.get(knob, ported)
-            if val != ported:
-                name = f"{block}.{knob}" if block else knob
-                raise NotImplementedError(
-                    f"{name}={val!r} is not ported yet (the port runs "
-                    f"{ported!r})")
         return cls(
             min_match_frac=float(t["min_match_frac"]),
             max_iters=int(t["max_iters"]),
@@ -70,31 +74,52 @@ class TrackerConfig(NamedTuple):
             match_frac_thresh=float(t["match_frac_thresh"]),
             sigma_ray=float(t["sigma_ray"]),
             sigma_dist=float(t["sigma_dist"]),
+            sigma_pixel=float(t["sigma_pixel"]),
+            sigma_depth=float(t["sigma_depth"]),
+            pixel_border=int(t["pixel_border"]),
+            depth_eps=float(t["depth_eps"]),
             filtering_mode=int(FilteringMode.from_str(t["filtering_mode"])),
             use_median_score=t.get("filtering_score", "median") == "median",
+            use_calib=bool(cfg.get("use_calib", False)),
+            joint_ray_huber=bool(t.get("joint_ray_huber", True)),
+            point_subsample=int(t.get("point_subsample", 1)),
         )
 
 
-def opt_pose_ray_dist_sim3(Xf, Xk, T_init, Qk, valid, cfg: TrackerConfig):
-    """Uncalibrated GN with ray + distance residuals and one Huber weight
-    per point for the three ray components (tracker.py:133, the closed form
-    of tracker.py:203-298).  Xf, Xk (n, 3); Qk, valid (n, 1).  Returns
-    (T_CkCf on T_init's device, ok, iterations run).  T stays on the
-    host; each iteration sends its 13 pose scalars to the card without a
-    sync and copies the 27 sums back."""
-    vq = (valid * torch.sqrt(Qk))[:, 0]
-    w_ray = (1.0 / cfg.sigma_ray) * vq
-    w_dist = (1.0 / cfg.sigma_dist) * vq
-    dk = torch.sqrt(torch.clamp(torch.sum(Xk * Xk, dim=-1), min=1e-24))
-    rd_k_t = torch.cat([Xk.T / dk[None, :], dk[None, :]])
-    pre = gn.GNPointData(Xf, rd_k_t, w_ray, w_dist)
+def _fuse_pose_jacobian(J_res, pW):
+    """J = -(J_res @ [I | -skew(pW) | pW]) with elementwise and cross
+    products (tracker.py:101).  J_res (n, R, 3) residual Jacobian wrt the
+    transformed point; pW (n, 3).  Returns (n, R, 7)."""
+    p = pW[:, None, :].expand_as(J_res)
+    rot = torch.linalg.cross(J_res, p, dim=-1)
+    scl = torch.sum(J_res * p, dim=-1, keepdim=True)
+    return torch.cat([-J_res, rot, -scl], dim=-1)
 
+
+def _normal_equations_7x7(sqrt_info, r, J, huber_k):
+    """Whiten, robustify and assemble the 7x7 normal equations
+    (tracker.py:114, the part before the solve).  sqrt_info, r (n, R);
+    J (n, R, 7).  Returns (H (7, 7), g (7,), cost ()) on the host."""
+    robust = sqrt_info * torch.sqrt(huber(sqrt_info * r, k=huber_k))
+    A = (robust[..., None] * J).reshape(-1, 7)
+    b = (robust * r).reshape(-1, 1)
+    H = A.T @ A
+    g = -(A.T @ b)[:, 0]
+    cost = 0.5 * torch.sum(b * b)
+    return H.cpu(), g.cpu(), cost.cpu()
+
+
+def _gn_loop(normal_equations, T_init, cfg: TrackerConfig):
+    """The GN iteration shared by the three solves (the ``while_loop`` of
+    tracker.py:363-374): ``normal_equations(T)`` gives (H, g, cost) on the
+    host for the pose T (8,) f32 on the host.  Returns (T on T_init's
+    device, ok, iterations run)."""
     T = T_init.detach().to("cpu", torch.float32)
     old_cost = math.inf
     ok = True
     it = 0
     while it < cfg.max_iters:
-        H, g, cost = gn.gn_accumulate(pre, T, cfg.huber_k)  # host: the sync
+        H, g, cost = normal_equations(T)                    # host: the sync
         tau, spd_ok = solve_spd_small(H, g)
         solve_ok = bool(spd_ok) and bool(torch.isfinite(tau).all())
         if not solve_ok:
@@ -111,8 +136,65 @@ def opt_pose_ray_dist_sim3(Xf, Xk, T_init, Qk, valid, cfg: TrackerConfig):
     return T.to(T_init.device), ok, it
 
 
+def opt_pose_ray_dist_sim3(Xf, Xk, T_init, Qk, valid, cfg: TrackerConfig):
+    """Uncalibrated GN with ray + distance residuals (tracker.py:133).
+    Xf, Xk (n, 3); Qk, valid (n, 1).  Returns (T_CkCf on T_init's device,
+    ok, iterations run).  T stays on the host.  Under ``joint_ray_huber``
+    (one weight per point for the three ray components, the closed form of
+    tracker.py:203-298) each iteration sends its 13 pose scalars to the
+    card without a sync and copies the 27 sums back; otherwise (per
+    component weights, tracker.py:300-341) the four residual rows and their
+    fused pose Jacobians are expanded on the points' device and reduced to
+    H and g there."""
+    vq = (valid * torch.sqrt(Qk))[:, 0]
+    w_ray = (1.0 / cfg.sigma_ray) * vq
+    w_dist = (1.0 / cfg.sigma_dist) * vq
+    dk = torch.sqrt(torch.clamp(torch.sum(Xk * Xk, dim=-1), min=1e-24))
+    if cfg.joint_ray_huber:
+        rd_k_t = torch.cat([Xk.T / dk[None, :], dk[None, :]])
+        pre = gn.GNPointData(Xf, rd_k_t, w_ray, w_dist)
+        return _gn_loop(lambda T: gn.gn_accumulate(pre, T, cfg.huber_k),
+                        T_init, cfg)
+
+    rd_k = torch.cat([Xk / dk[:, None], dk[:, None]], dim=-1)      # (n, 4)
+    sqrt_info = torch.stack([w_ray, w_ray, w_ray, w_dist], dim=-1)
+
+    def per_component(T):
+        p = sim3.act(T.to(Xf.device), Xf)
+        rd, J_rd = point_to_ray_dist(p, jacobian=True)
+        return _normal_equations_7x7(
+            sqrt_info, rd_k - rd, _fuse_pose_jacobian(J_rd, p), cfg.huber_k)
+
+    return _gn_loop(per_component, T_init, cfg)
+
+
+def opt_pose_calib_sim3(Xf, Xk, T_init, Qk, valid, meas_k, valid_meas_k, K,
+                        img_size, cfg: TrackerConfig):
+    """Calibrated GN with pixel + log-depth residuals (tracker.py:377).
+    meas_k (n, 3) the keyframe's (u, v, log z); valid_meas_k (n, 1); K
+    (3, 3).  ``Xk`` is unused, as in JAX: the keyframe enters through
+    ``meas_k``."""
+    vq = valid * torch.sqrt(Qk)
+    sqrt_info = torch.cat([
+        ((1.0 / cfg.sigma_pixel) * vq).expand(-1, 2),
+        (1.0 / cfg.sigma_depth) * vq], dim=1)
+
+    def pixel_logdepth(T):
+        Xf_Ck = sim3.act(T.to(Xf.device), Xf)
+        pz, J_pz, valid_proj = project_calib(
+            Xf_Ck, K, img_size, jacobian=True, border=cfg.pixel_border,
+            z_eps=cfg.depth_eps)
+        si = (valid_proj & valid_meas_k) * sqrt_info
+        return _normal_equations_7x7(
+            si, meas_k - pz, _fuse_pose_jacobian(J_pz, Xf_Ck), cfg.huber_k)
+
+    return _gn_loop(pixel_logdepth, T_init, cfg)
+
+
 class TrackResult(NamedTuple):
-    """(tracker.py:419) without the backend's reuse fields."""
+    """(tracker.py:419).  ``valid_match``, ``Qff``, ``Qkf`` and the q8
+    descriptor tables are what the backend reuses for the consecutive
+    factor-graph edge when the frame becomes a keyframe."""
     frame: Frame
     keyframe: Frame
     idx_f2k: torch.Tensor        # (1, hw)
@@ -120,18 +202,28 @@ class TrackResult(NamedTuple):
     new_kf_metric: torch.Tensor  # () min(match_frac_k, unique_frac_f)
     ok: bool                     # solver healthy
     gn_iters: int
+    valid_match: torch.Tensor    # (1, hw, 1) bool
+    Qff: torch.Tensor            # (1, hw, 1) frame self desc-conf
+    Qkf: torch.Tensor            # (1, hw, 1) keyframe cross desc-conf
+    desc8_frame: object          # (1, hw, f) int8 q8 descriptors or None
+    desc8_kf: object             # (1, hw, f) int8 q8 descriptors or None
 
 
 def track_step(engine, frame: Frame, keyframe: Frame, idx_init,
-               cfg: TrackerConfig) -> TrackResult:
+               cfg: TrackerConfig, K=None) -> TrackResult:
     """One tracking step (tracker.py:445): asymmetric decode + match
     against the keyframe, fusion, the Sim(3) solve, the keyframe's fusion
-    and the keyframe-selection metrics."""
-    hw = frame.hw
-    (idx_f2k_b, valid_match_k_b, Xff, Cff, Qff, Xkf, Ckf, Qkf) = \
-        engine.match_asymmetric(frame.feat[None], frame.pos[None],
-                                keyframe.feat[None], keyframe.pos[None],
-                                idx_init)
+    and the keyframe-selection metrics.  ``K`` (3, 3) is read under
+    ``cfg.use_calib`` only."""
+    h, w = frame.uimg.shape[0], frame.uimg.shape[1]
+    hw = h * w
+    outs = engine.match_asymmetric(frame.feat[None], frame.pos[None],
+                                   keyframe.feat[None], keyframe.pos[None],
+                                   idx_init)
+    desc8_f = desc8_k = None
+    if len(outs) == 10:   # engine that exports its q8 descriptor tables
+        desc8_f, desc8_k = outs[8:]
+    idx_f2k_b, valid_match_k_b, Xff, Cff, Qff, Xkf, Ckf, Qkf = outs[:8]
     idx_f2k = idx_f2k_b[0]
     valid_match_k = valid_match_k_b[0]
     Xff, Cff, Qff = Xff[0], Cff[0], Qff[0]
@@ -144,21 +236,54 @@ def track_step(engine, frame: Frame, keyframe: Frame, idx_init,
     Cf = frame.get_average_conf()
     Ck = keyframe.get_average_conf()
 
+    meas_k = valid_meas_k = None
+    if cfg.use_calib:
+        Xf = constrain_points_to_ray((h, w), Xf[None], K)[0]
+        Xk = constrain_points_to_ray((h, w), Xk[None], K)[0]
+        uv_k = get_pixel_coords(1, (h, w), device=Xk.device).reshape(-1, 2)
+        valid_meas_k = Xk[..., 2:3] > cfg.depth_eps
+        z_safe = torch.where(valid_meas_k, Xk[..., 2:3],
+                             torch.ones_like(Xk[..., 2:3]))
+        meas_k = torch.cat([uv_k, torch.log(z_safe)], dim=-1)
+        meas_k = torch.where(valid_meas_k, meas_k, torch.zeros_like(meas_k))
+
+    # GN point set: the full raster or an s x s subgrid (point_subsample);
+    # the gathered tables stay full-res
+    s = cfg.point_subsample
+    if s > 1 and h % s == 0 and w % s == 0:
+        def sub(A):
+            return A.reshape(h, w, -1)[::s, ::s].reshape(
+                (h // s) * (w // s), -1)
+
+        idx_gn = idx_f2k.reshape(h, w)[::s, ::s].reshape(-1)
+        vm_gn = sub(valid_match_k)
+        Qkf_gn, Xk_gn, Ck_gn = sub(Qkf), sub(Xk), sub(Ck)
+        if cfg.use_calib:
+            meas_k, valid_meas_k = sub(meas_k), sub(valid_meas_k)
+    else:
+        idx_gn, vm_gn = idx_f2k, valid_match_k
+        Qkf_gn, Xk_gn, Ck_gn = Qkf, Xk, Ck
+
     # one gather for Xf, Cf, Qff, which share idx_f2k (tracker.py:527)
-    g = torch.cat([Xf, Cf, Qff], dim=-1)[idx_f2k]
+    g = torch.cat([Xf, Cf, Qff], dim=-1)[idx_gn]
     Xf_m = g[:, 0:3]
     Cf_m = g[:, 3:4]
-    Qk = torch.sqrt(g[:, 4:5] * Qkf)
+    Qk = torch.sqrt(g[:, 4:5] * Qkf_gn)
 
     valid_Q = Qk > cfg.Q_conf
-    valid_opt = valid_match_k & (Cf_m > cfg.C_conf) & (Ck > cfg.C_conf) \
-        & valid_Q
-    valid_kf = valid_match_k & valid_Q
+    valid_opt = vm_gn & (Cf_m > cfg.C_conf) & (Ck_gn > cfg.C_conf) & valid_Q
+    valid_kf = vm_gn & valid_Q
     match_frac = torch.mean(valid_opt.float())
 
     T_WCf, T_WCk = frame.T_WC, keyframe.T_WC
-    T_CkCf, ok, gn_iters = opt_pose_ray_dist_sim3(
-        Xf_m, Xk, sim3.rel(T_WCk, T_WCf), Qk, valid_opt.to(Xf_m.dtype), cfg)
+    T_init = sim3.rel(T_WCk, T_WCf)
+    if cfg.use_calib:
+        T_CkCf, ok, gn_iters = opt_pose_calib_sim3(
+            Xf_m, Xk_gn, T_init, Qk, valid_opt.to(Xf_m.dtype), meas_k,
+            valid_meas_k, K, (h, w), cfg)
+    else:
+        T_CkCf, ok, gn_iters = opt_pose_ray_dist_sim3(
+            Xf_m, Xk_gn, T_init, Qk, valid_opt.to(Xf_m.dtype), cfg)
     # normalize: this product is the per-frame pose recursion (tracker.py:557)
     frame = frame.replace(T_WC=sim3.normalize(sim3.mul(T_WCk, T_CkCf)))
 
@@ -174,18 +299,23 @@ def track_step(engine, frame: Frame, keyframe: Frame, idx_init,
         frame=frame, keyframe=keyframe, idx_f2k=idx_f2k_b,
         match_frac=match_frac,
         new_kf_metric=torch.minimum(match_frac_k, unique_frac_f),
-        ok=ok, gn_iters=gn_iters)
+        ok=ok, gn_iters=gn_iters, valid_match=valid_match_k_b,
+        Qff=Qff[None], Qkf=Qkf[None], desc8_frame=desc8_f, desc8_kf=desc8_k)
 
 
 class FrameTracker:
     """The tracker on the host (tracker.py:590): owns the match-index warm
     start and makes the skip / new-keyframe decisions."""
 
-    def __init__(self, engine, cfg: TrackerConfig):
+    def __init__(self, engine, cfg: TrackerConfig, K=None):
         self.engine = engine
         self.cfg = cfg
+        self.K = K
         self.idx_f2k = None
         self.last_diag = {}
+        # measured GN cadence: max_iters is only the cap
+        self.gn_iters_total = 0
+        self.gn_frames = 0
 
     def reset_idx_f2k(self):
         self.idx_f2k = None
@@ -196,8 +326,11 @@ class FrameTracker:
         if idx_init is None:
             idx_init = torch.arange(frame.hw,
                                     device=frame.X_canon.device)[None]
-        res = track_step(self.engine, frame, keyframe, idx_init, self.cfg)
+        res = track_step(self.engine, frame, keyframe, idx_init, self.cfg,
+                         self.K)
         match_frac = float(res.match_frac)
+        self.gn_iters_total += res.gn_iters
+        self.gn_frames += 1
         self.last_diag = {
             "match_frac": match_frac,
             "gn_iters": res.gn_iters,

@@ -94,10 +94,3 @@ def apply_reference_exact(cfg: dict) -> dict:
     out["reference_exact"] = True
     return out
 
-
-def frontend_config(path: str | Path = "config/base.yaml") -> dict:
-    """The configuration the ported frontend runs: ``path`` with the
-    reference-exact ``matching`` block and the production ``tracking``
-    block (joint ray Huber, so the GN kernel stays on the path)."""
-    return merge_config(load_config(path),
-                        {"matching": REFERENCE_EXACT_OVERRIDES["matching"]})

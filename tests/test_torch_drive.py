@@ -1,0 +1,354 @@
+"""The command-line drive of the port: oracle clips through the frontend,
+export, ATE, the dataset loaders and ``main_torch.main``.
+
+* A 16-frame 48x64 oracle clip (the fixture of ``tests/test_pipeline.py``)
+  is rendered and saved by the JAX ``SyntheticSequence``; the port loads the
+  same ``.npz``.  The port's ``SLAMSystem`` and a JAX frontend loop (the
+  frontend of ``pipeline.py:360-433`` written out from the JAX
+  ``OracleEngine``, ``FrameTracker`` and ``update_pointmap``, without the
+  backend) must make the same keyframe decisions; poses agree to atol 1e-3
+  (both oracles hand over identical matches and pointmaps, so what differs
+  is f32 summation order in up to 50 GN iterations a frame, chained over 16
+  frames); the port's ATE stays under the JAX tests' limits (0.05 m
+  uncalibrated, 0.1 m calibrated, ``tests/test_pipeline.py:49, 68``).
+* ``evaluate``: the hand-computed Sim(3) case of
+  ``tests/test_pipeline.py:259`` to rtol 1e-6, and exact round trips.
+* ``dataloader``: equal, array for array, to the JAX loader on the same
+  folders.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import main_torch
+from mast3r_slam_tpu import dataloader as jdl
+from mast3r_slam_tpu import frame as jfr
+from mast3r_slam_tpu import testing as jtesting
+from mast3r_slam_tpu.ops import lie_sim3 as jsim3
+from mast3r_slam_tpu.tracker import FrameTracker as JaxTracker
+from mast3r_slam_tpu.tracker import TrackerConfig as JaxTrackerConfig
+from mast3r_slam_tpu.utils import config as jconfig
+from mast3r_slam_torch import dataloader as tdl
+from mast3r_slam_torch import evaluate, testing
+from mast3r_slam_torch.pipeline import SLAMSystem
+from mast3r_slam_torch.utils.config import load_config
+
+H, W, N_FRAMES = 48, 64, 16
+POSE_ATOL = 1e-3
+ATE_LIMIT = {False: 0.05, True: 0.1}
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    """(JAX sequence, the port's sequence loaded from its .npz, clip dir)."""
+    d = tmp_path_factory.mktemp("clip")
+    jseq = jtesting.SyntheticSequence(n_frames=N_FRAMES, h=H, w=W, seed=0,
+                                      traj_scale=0.5)
+    jseq.save(d / "oracle.npz")
+    tseq = testing.SyntheticSequence.load(d / "oracle.npz")
+    tseq.images = [np.asarray(im) for im in jseq.images]
+    testing.write_clip(tseq, d)
+    return jseq, tseq, d
+
+
+def _cfg(calib):
+    cfg = load_config("config/eval_calib.yaml" if calib
+                      else "config/eval_no_calib.yaml")
+    cfg["dataset"]["img_size"] = W
+    return cfg
+
+
+def _run_jax(seq, cfg, calib):
+    engine = jtesting.OracleEngine(seq)
+    tracker = JaxTracker(engine, JaxTrackerConfig.from_config(cfg),
+                         jnp.asarray(seq.K) if calib else None)
+    fmode = jfr.FilteringMode.from_str(cfg["tracking"]["filtering_mode"])
+    arena = jfr.make_arena(32, H, W, engine.n_patches, engine.feat_dim)
+    mode, last_T, log = jfr.Mode.INIT, jsim3.identity(), []
+    for i in range(len(seq.X_cam)):
+        feat, pos = engine.encode(None)
+        fr = jfr.make_empty_frame(H, W, engine.n_patches, engine.feat_dim) \
+            .replace(frame_id=jnp.asarray(i, jnp.int32), T_WC=last_T,
+                     feat=feat[0], pos=pos[0])
+        new_kf = False
+        if mode == jfr.Mode.INIT:
+            X, C = engine.inference_mono(fr.feat[None], fr.pos[None])
+            fr = jfr.update_pointmap(fr, X[0], C[0], fmode, True)
+            arena = jfr.arena_append(arena, fr)
+            mode, last_T = jfr.Mode.TRACKING, fr.T_WC
+        else:
+            last = int(arena.n_size) - 1
+            new_kf, fr, kf, try_reloc, _ = tracker.track(
+                fr, jfr.arena_get(arena, last))
+            assert not try_reloc
+            arena = jfr.arena_set(arena, last, kf)
+            last_T = fr.T_WC
+            if new_kf:
+                arena = jfr.arena_append(arena, fr)
+        log.append((bool(new_kf), np.asarray(last_T)))
+    return log, np.asarray(arena.T_WC[:int(arena.n_size)])
+
+
+def _run_port(seq, cfg, calib):
+    engine = testing.OracleEngine(seq, device="cpu")
+    system = SLAMSystem(cfg, engine, (H, W), K=seq.K if calib else None,
+                        buffer=32, device="cpu")
+    log = []
+    for i in range(len(seq)):
+        info = system.process_frame(i, seq.images[i])
+        log.append((info["new_kf"], system.last_T_WC.numpy().copy()))
+    system.terminate()
+    return log, system
+
+
+@pytest.mark.parametrize("calib", [False, True],
+                         ids=["uncalibrated", "calibrated"])
+def test_oracle_drive_matches_jax_frontend(clip, calib, tmp_path):
+    jseq, tseq, _ = clip
+    cfg = _cfg(calib)
+    jlog, jkf = _run_jax(jseq, cfg, calib)
+    tlog, system = _run_port(tseq, cfg, calib)
+    assert [k for k, _ in tlog] == [k for k, _ in jlog]
+    assert system.stats["skipped"] == 0 and system.stats["keyframes"] >= 2
+    assert system.mode.name == "TERMINATED"
+    for (_, tT), (_, jT) in zip(tlog, jlog):
+        np.testing.assert_allclose(tT, jT, atol=POSE_ATOL, rtol=0)
+    n = system.arena.n_size
+    np.testing.assert_allclose(system.arena.T_WC[:n].numpy(), jkf,
+                               atol=POSE_ATOL, rtol=0)
+
+    evaluate.save_traj(tmp_path, "est.txt", tseq.timestamps, system.arena)
+    tseq.write_gt(tmp_path / "gt.txt")
+    ate = evaluate.ate_rmse(tmp_path / "gt.txt", tmp_path / "est.txt",
+                            max_diff=0.05)
+    assert ate < ATE_LIMIT[calib], ate
+
+    # trajectory round trip: what was written is what the arena holds
+    ts, pos, quat = evaluate.load_tum_trajectory(tmp_path / "est.txt")
+    ids = system.arena.frame_id[:n].numpy()
+    np.testing.assert_allclose(ts, np.asarray(tseq.timestamps)[ids])
+    np.testing.assert_allclose(pos, system.arena.T_WC[:n, :3].numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(quat, axis=-1), 1.0, rtol=1e-6)
+
+    evaluate.save_reconstruction(tmp_path, "map.ply", system.arena, 0.5,
+                                 K=system.K)
+    pts, cols = evaluate.load_ply(tmp_path / "map.ply")
+    assert len(pts) > 1000 and np.isfinite(pts).all()
+    assert cols.dtype == np.uint8 and cols.shape == pts.shape
+
+
+def test_system_refuses_K_that_disagrees_with_the_config(clip):
+    _, tseq, _ = clip
+    engine = testing.OracleEngine(tseq, device="cpu")
+    with pytest.raises(ValueError, match="use_calib"):
+        SLAMSystem(_cfg(False), engine, (H, W), K=tseq.K, device="cpu")
+    with pytest.raises(ValueError, match="use_calib"):
+        SLAMSystem(_cfg(True), engine, (H, W), device="cpu")
+
+
+def test_port_renders_the_jax_sequence():
+    """The port's own renderer and trajectory (numpy + torch) against the
+    JAX ones: poses to 1e-6, pointmaps to 1e-4 of a ~4 m scene, images to
+    1e-5."""
+    kw = dict(n_frames=3, h=24, w=32, seed=1, traj_scale=0.5)
+    jseq = jtesting.SyntheticSequence(**kw)
+    tseq = testing.SyntheticSequence(**kw)
+    np.testing.assert_allclose(tseq.T_WC.numpy(), np.asarray(jseq.T_WC),
+                               atol=1e-6)
+    np.testing.assert_array_equal(tseq.K, jseq.K)
+    assert tseq.timestamps == jseq.timestamps
+    for i in range(3):
+        np.testing.assert_allclose(tseq.X_cam[i], jseq.X_cam[i], atol=1e-4)
+        np.testing.assert_allclose(tseq.X_world[i], jseq.X_world[i],
+                                   atol=1e-4)
+        np.testing.assert_allclose(tseq.images[i], jseq.images[i], atol=1e-5)
+    Xw = tseq.X_world[0]
+    for geometric in (False, True):
+        np.testing.assert_allclose(
+            testing.world_descriptors(Xw, geometric=geometric),
+            jtesting.world_descriptors(Xw, geometric=geometric), atol=1e-6)
+
+
+def test_oracle_engine_outputs_match_jax(clip):
+    jseq, tseq, _ = clip
+    jeng = jtesting.OracleEngine(jseq)
+    teng = testing.OracleEngine(tseq, device="cpu")
+    jf = [jeng.encode(None) for _ in range(4)]
+    tf = [teng.encode(None) for _ in range(4)]
+    np.testing.assert_array_equal(tf[3][0].numpy(), np.asarray(jf[3][0]))
+    jout = jeng.match_asymmetric(jf[3][0], jf[3][1], jf[0][0], jf[0][1])
+    tout = teng.match_asymmetric(tf[3][0], tf[3][1], tf[0][0], tf[0][1])
+    assert len(tout) == len(jout) == 8
+    for t, j in zip(tout, jout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6)
+    jX, jC = jeng.inference_mono(jf[2][0], jf[2][1])
+    tX, tC = teng.inference_mono(tf[2][0], tf[2][1])
+    np.testing.assert_array_equal(tX.numpy(), np.asarray(jX))
+    np.testing.assert_array_equal(tC.numpy(), np.asarray(jC))
+
+
+def test_ate_rmse_hand_computed_sim3_case(tmp_path):
+    """``tests/test_pipeline.py:259``: gt the 6 axis unit vectors, est with
+    a mean-zero perturbation orthogonal to gt, so Umeyama gives R = I,
+    t = 0, c = 1 / (1 + 2 e^2 / 3) in closed form."""
+    e = 1e-3
+    gt = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0],
+                   [0, -1, 0], [0, 0, 1], [0, 0, -1]], float)
+    d = np.zeros_like(gt)
+    d[:2, 2], d[2:4, 2] = e, -e
+    est = gt + d
+    for name, p in (("gt.txt", gt), ("est.txt", est)):
+        with open(tmp_path / name, "w") as f:
+            for i in range(len(p)):
+                f.write(f"{i * 0.1} {p[i, 0]} {p[i, 1]} {p[i, 2]} 0 0 0 1\n")
+    c = 1.0 / (1.0 + 2.0 * e * e / 3.0)
+    expected = float(np.sqrt(
+        (np.linalg.norm(c * est - gt, axis=-1) ** 2).mean()))
+    ate = evaluate.ate_rmse(tmp_path / "gt.txt", tmp_path / "est.txt")
+    assert np.isclose(ate, expected, rtol=1e-6), (ate, expected)
+    R, t, c_hat = evaluate.umeyama_alignment(est, gt)
+    np.testing.assert_allclose(R, np.eye(3), atol=1e-9)
+    assert np.isclose(c_hat, c, rtol=1e-9)
+    ia, ib = evaluate.associate(np.array([0.021]), np.array([0.0, 0.02, 0.5]),
+                                max_diff=0.05)
+    assert list(zip(ia, ib)) == [(0, 1)]
+
+
+def test_ply_round_trip(tmp_path):
+    rng = np.random.default_rng(0)
+    pts = rng.standard_normal((50, 3)).astype(np.float32)
+    cols = rng.integers(0, 256, (50, 3)).astype(np.uint8)
+    evaluate.save_ply(tmp_path / "a.ply", pts, cols)
+    p2, c2 = evaluate.load_ply(tmp_path / "a.ply")
+    np.testing.assert_array_equal(p2, pts)
+    np.testing.assert_array_equal(c2, cols)
+
+
+def _write_tum_folder(d, frames):
+    import cv2
+
+    (d / "rgb").mkdir(parents=True)
+    with open(d / "rgb.txt", "w") as f:
+        for i, img in enumerate(frames):
+            cv2.imwrite(str(d / "rgb" / f"{i}.png"),
+                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+            f.write(f"{1000.5 + i * 0.033} rgb/{i}.png\n")
+
+
+@pytest.mark.parametrize("layout,use_calib", [
+    ("png_folder", False), ("png_folder", True), ("tum_freiburg1", False),
+    ("tum_freiburg1", True)])
+def test_load_dataset_matches_jax_loader(tmp_path, layout, use_calib):
+    """A folder of PNGs (with its calibration sidecar) and a TUM-layout
+    folder: the same class, timestamps, images, shapes and intrinsics as the
+    JAX loader, which reads its process-global config where the port takes
+    the dict."""
+    rng = np.random.default_rng(3)
+    if layout == "png_folder":
+        seq = testing.SyntheticSequence(n_frames=3, h=H, w=W, seed=2)
+        d = tmp_path / "clip"
+        testing.write_clip(seq, d)
+    else:
+        d = tmp_path / "tum" / "rgbd_dataset_freiburg1_x"
+        _write_tum_folder(d, [rng.integers(0, 256, (480, 640, 3))
+                              .astype(np.uint8) for _ in range(2)])
+    cfg = load_config("config/base.yaml")
+    cfg["use_calib"] = use_calib
+    saved = dict(jconfig.config)
+    try:
+        jconfig.set_global_config(cfg)
+        jds = jdl.load_dataset(str(d))
+        jds.subsample(1)
+        jshape = jds.get_img_shape()
+        jitems = [jds[i] for i in range(len(jds))]
+    finally:
+        jconfig.set_global_config(saved)
+    tds = tdl.load_dataset(str(d), cfg)
+    tds.subsample(1)
+    assert type(tds).__name__ == type(jds).__name__
+    assert len(tds) == len(jds) and tds.get_img_shape() == jshape
+    assert tds.has_calib() == jds.has_calib() == use_calib
+    for i, (jts, jimg) in enumerate(jitems):
+        tts, timg = tds[i]
+        assert tts == jts
+        np.testing.assert_array_equal(timg, jimg)
+    if use_calib:
+        for name in ("K", "K_frame", "K_orig", "mapx", "mapy"):
+            np.testing.assert_array_equal(
+                getattr(tds.camera_intrinsics, name),
+                getattr(jds.camera_intrinsics, name), err_msg=name)
+
+
+def test_imread_without_cv2_gives_the_same_pixels(clip, monkeypatch):
+    """Where ``cv2`` is not installed the loader reads through PIL."""
+    _, _, d = clip
+    with_cv2 = tdl._imread_rgb(d / "000003.png")
+
+    def no_cv2():
+        raise ImportError("cv2")
+
+    monkeypatch.setattr(tdl, "_cv2", no_cv2)
+    np.testing.assert_array_equal(tdl._imread_rgb(d / "000003.png"), with_cv2)
+
+
+@pytest.mark.parametrize("config,calib", [
+    ("config/eval_no_calib.yaml", False), ("config/eval_calib.yaml", True)])
+def test_main_torch_oracle_end_to_end(clip, tmp_path, monkeypatch, capsys,
+                                      config, calib):
+    """``main_torch.py --dataset <clip> --oracle --cpu --no-viz --gt``:
+    writes the trajectory, the .ply, the keyframes and the diagnostics, and
+    prints an ATE under the JAX test's limit."""
+    _, _, d = clip
+    monkeypatch.chdir(tmp_path)
+    root = main_torch.pathlib.Path(main_torch.__file__).parent
+    (tmp_path / "config").symlink_to(root / "config")
+    rc = main_torch.main([
+        "--dataset", str(d), "--config", config, "--oracle", "--cpu",
+        "--no-viz", "--gt", str(d / "gt.txt"), "--ate-max-diff", "0.05",
+        "--save-as", "run", "--diag-out", "logs/run/diag.jsonl",
+        "--profile"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    name = d.stem
+    ate = float(out.split("ATE RMSE (Sim3-aligned):")[1].split()[0])
+    assert ate < ATE_LIMIT[calib]
+    logs = tmp_path / "logs" / "run"
+    ts, pos, _ = evaluate.load_tum_trajectory(logs / f"{name}.txt")
+    assert len(ts) >= 2 and np.isfinite(pos).all()
+    pts, _ = evaluate.load_ply(logs / f"{name}.ply")
+    assert len(pts) > 1000
+    assert len(list((logs / "keyframes" / name).glob("*.png"))) == len(ts)
+    # eval configs subsample the clip by 2
+    diag = (logs / "diag.jsonl").read_text().splitlines()
+    assert len(diag) == N_FRAMES // 2
+    assert "track" in out and "stats:" in out
+
+
+@pytest.mark.parametrize("flag", [
+    ["--int8-encoder"], ["--int8-local-head"], ["--tp", "2"],
+    ["--backend-device", "0"], ["--resume-state", "s.npz"],
+    ["--state-out", "s.npz"], ["--oracle-desc"], ["--oracle-retrieval"],
+    ["--viz-port", "8089"], ["--profile-blocks"], []],
+    ids=lambda f: f[0] if f else "without --no-viz")
+def test_main_torch_refuses_later_slices(flag):
+    """A flag whose module is a later slice exits with one line naming the
+    slice; it does not run something else."""
+    argv = ["--cpu"] + flag + (["--no-viz"] if flag else [])
+    with pytest.raises(SystemExit) as e:
+        main_torch.main(argv)
+    msg = str(e.value.code)
+    assert "not ported yet" in msg and "slice" in msg and "\n" not in msg
+
+
+def test_main_torch_needs_a_card_without_cpu_flag(clip, tmp_path,
+                                                  monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    _, _, d = clip
+    monkeypatch.chdir(main_torch.pathlib.Path(main_torch.__file__).parent)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main_torch.main(["--dataset", str(d), "--oracle", "--no-viz",
+                         "--config", "config/eval_no_calib.yaml"])

@@ -11,7 +11,8 @@ N(0,1) inputs (the kernel's f32 FMA order differs from the plain version's
 matrix products); each of the 27 GN sums, at a pose far from the identity,
 within 1e-4 of itself plus 1e-5 of the sum of its terms' magnitudes (a
 block reduction in another order than torch's sum; ``testing.gn_sums_check``),
-and bitwise equality between two launches (a fixed fold order).
+and bitwise equality between two launches (a fixed fold order).  The pack
+kernel is a copy: bitwise equal to its plain version, no tolerance.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 from mast3r_slam_torch import testing
 from mast3r_slam_torch.ops import attention as tattn
 from mast3r_slam_torch.ops import gn as tgn
+from mast3r_slam_torch.ops import pack as tpack
 
 
 @pytest.fixture
@@ -73,3 +75,39 @@ def test_gn_kernel_matches_plain_and_is_deterministic(cuda, n):
     err, tol = testing.gn_sums_check(
         a1, tgn.gn_terms_plain(pre.pts, scal, 1.345))
     assert bool((err <= tol).all()), (err / tol).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float16, torch.bfloat16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("b,h,w,f,k_side,d,u_pack", [
+    (1, 384, 512, 24, 7, 4, 2),   # production refine, 16-byte units
+    (1, 384, 512, 9, 0, 0, 0),    # LM corner table: 18-byte f16 rows
+    (2, 300, 7, 12, 5, 2, 5),     # nibble-table width, a grid no tile divides
+    (1, 40, 33, 5, 3, 1, 3),      # odd row width: byte units for int8
+])
+def test_pack_kernel_matches_plain_bitwise(cuda, dtype, b, h, w, f, k_side, d,
+                                           u_pack):
+    hw = h * w
+    rng = np.random.default_rng(hw + f)
+    flat = torch.from_numpy(rng.integers(-127, 128, (b, hw, f))).to(cuda, dtype)
+    if k_side:
+        rd = (k_side // 2) * d
+        offs = tpack._offsets(k_side, d, rd, w, u_pack)
+        row0, n_rows = -rd, hw + 2 * rd
+    else:
+        offs, row0, n_rows = (0, 1, w, w + 1), 0, None
+    before = tpack.pack_rows.launches
+    got = tpack.pack_rows(flat, offs, row0, n_rows)
+    torch.cuda.synchronize()
+    assert tpack.pack_rows.launches == before + 1
+    ref = tpack.pack_rows_plain(flat, offs, row0, n_rows)
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_pack_kernel_refuses_a_strided_table(cuda):
+    flat = torch.zeros(1, 24, 64, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpack.pack_rows(flat.transpose(1, 2), (0, 1))
