@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA card.
 
-Builds the port's three CUDA kernels from ``mast3r_slam_torch/csrc``
-(attention, the GN accumulation, the probe-table pack), holds each against
-its plain PyTorch version on the card at the shapes the main path gives it,
-and times it beside its bound, its plain version and (where one exists) a
-single PyTorch library call.  Then it drives the port as a user would:
+Builds the port's CUDA kernels from ``mast3r_slam_torch/csrc`` (attention
+on the tensor cores, the GN accumulation and the whole GN solve in one
+launch, the probe-table pack), holds each against its plain PyTorch version
+on the card at the shapes the main path gives it, and times it beside its
+bound, its plain version and (where one exists) a single PyTorch library
+call.  Then it drives the port as a user would:
 
 * ``main_torch.run`` (the frame loop of ``main_torch.py``) at full ViT-L
   width on 384x512 frames with seeded random weights and ``config/base.yaml``
   unmodified (the production matcher), counting that every attention, GN
-  accumulation and table pack of that drive went through the kernels, and
-  writing and reading back the trajectory;
+  solve and table pack of that drive went through the kernels, and writing
+  and reading back the trajectory;
 * a short drive at the same width with ``reference_exact: true`` (the
   full-resolution matcher and the per-component Huber solve);
 * the oracle harness (a rendered 16-frame clip with known poses),
@@ -45,6 +46,8 @@ ATTN_SHAPES = [  # (B, H, Nq, Nk, Dh)
     (1, 12, 768, 512, 64),   # cross-attention with Nq != Nk
 ]
 ATTN_TOL = {"bf16": 2e-2, "f32": 1e-4}   # max abs error on N(0,1) inputs
+ATTN_RAGGED = (1, 77, 768, 769)          # Nq and Nk of the strided bf16 check
+GN_POSE_ATOL = 1e-5                      # gn_solve against the plain loop
 IMG_HW = (384, 512)
 # the drive's clip: frames, pixels between consecutive frames, and the share
 # of blurred noise in its image (testing.make_clip)
@@ -70,6 +73,10 @@ def peaks(name):
 
 
 def time_ms(fn, reps=50, warmup=5):
+    """Device time of one call of ``fn`` in ms: ``reps`` calls between two
+    CUDA events.  The calls are enqueued behind a spin kernel of some 10 ms,
+    so that a call whose kernels are shorter than its launch on the host is
+    timed by the card's work and not by the host's pace."""
     import torch
 
     for _ in range(warmup):
@@ -77,6 +84,7 @@ def time_ms(fn, reps=50, warmup=5):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -85,7 +93,47 @@ def time_ms(fn, reps=50, warmup=5):
     return start.elapsed_time(stop) / reps
 
 
+def tensor_core_instructions():
+    """The count of warpgroup (``HGMMA``) and warp (``HMMA``) matrix
+    instructions in the SASS of the built attention library, by
+    ``cuobjdump``: the proof that its products run on the tensor cores."""
+    import shutil
+    from pathlib import Path
+
+    from mast3r_slam_torch import _build
+
+    lib = _build.lib_path("attention")
+    cands = [Path(_build.nvcc()).parent / "cuobjdump"]
+    try:
+        import triton
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    tool = next((str(c) for c in cands if c.exists()),
+                shutil.which("cuobjdump"))
+    if tool is None:
+        raise SystemExit("cuobjdump not found: cannot show that attention "
+                         "runs on the tensor cores")
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {op: sum(1 for line in sass.splitlines() if f" {op}." in line)
+              for op in ("HGMMA", "HMMA")}
+    print(f"attention SASS ({Path(tool).name} -sass {lib.name}): "
+          f"{counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA instructions")
+    if counts["HGMMA"] + counts["HMMA"] == 0:
+        raise SystemExit("the attention library holds no tensor-core "
+                         "instruction")
+    return counts
+
+
 def check_attention(peak_flops, peak_bw, card):
+    """Kernel A against ``attention_plain``: the main path's shapes
+    contiguous in bf16 and f32; then bf16 on strided views of (B, N, H, Dh)
+    memory at ragged sizes, with a V whose columns carry distinct offsets
+    (a wrong lane in the P fragment or the V descriptor moves a column);
+    then q, k, v as the model's views of one packed qkv product.  Times
+    kernel, plain version and SDPA on the same tensors."""
     import torch
     import torch.nn.functional as F
 
@@ -93,29 +141,55 @@ def check_attention(peak_flops, peak_bw, card):
         flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    def held(what, name, q, k, v):
+        out = flash_attention(q, k, v)
+        err = (out.float() - attention_plain(q, k, v).float()).abs().max() \
+            .item()
+        torch.cuda.synchronize()
+        ok = err <= ATTN_TOL[name] and out.shape == q.shape \
+            and out.transpose(1, 2).is_contiguous()
+        print(f"attention {name} {what}: max abs err {err:.3e} (tol "
+              f"{ATTN_TOL[name]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("attention kernel disagrees with its plain "
+                             "version")
+        return err
+
     worst = {}
     for (B, H, Nq, Nk, Dh) in ATTN_SHAPES:
         for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            q = torch.randn(B, H, Nq, Dh, device="cuda", generator=gen).to(dt)
-            k = torch.randn(B, H, Nk, Dh, device="cuda", generator=gen).to(dt)
-            v = torch.randn(B, H, Nk, Dh, device="cuda", generator=gen).to(dt)
-            err = (flash_attention(q, k, v).float()
-                   - attention_plain(q, k, v).float()).abs().max().item()
-            torch.cuda.synchronize()
-            ok = err <= ATTN_TOL[name]
-            print(f"attention {name} B={B} H={H} Nq={Nq} Nk={Nk} Dh={Dh}: "
-                  f"max abs err {err:.3e} (tol {ATTN_TOL[name]:.0e}) "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit("attention kernel disagrees with its plain "
-                                 "version")
-            worst[(B, H, Nq, Nk, name)] = err
+            q, k, v = (randn(B, H, n, Dh).to(dt) for n in (Nq, Nk, Nk))
+            worst[(B, H, Nq, Nk, name)] = held(
+                f"B={B} H={H} Nq={Nq} Nk={Nk} Dh={Dh}", name, q, k, v)
+
+    # strided (B, N, H, Dh) views, ragged sizes, column-coded V
+    B, H, Dh = 2, 3, 64
+    code = ((torch.arange(Dh, device="cuda") * 37) % Dh) / (Dh / 2) - 1.0
+    worst_ragged = 0.0
+    for Nq in ATTN_RAGGED:
+        for Nk in ATTN_RAGGED:
+            q = randn(B, Nq, H, Dh).to(torch.bfloat16).transpose(1, 2)
+            k = randn(B, Nk, H, Dh).to(torch.bfloat16).transpose(1, 2)
+            v = (0.1 * randn(B, Nk, H, Dh) + code).to(torch.bfloat16) \
+                .transpose(1, 2)
+            worst_ragged = max(worst_ragged, held(
+                f"strided B={B} H={H} Nq={Nq} Nk={Nk}", "bf16", q, k, v))
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qkv = randn(1, 768, 3, 16, Dh).to(dt)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        held("views of a packed qkv (1, 768, 3, 16, 64)", name, q, k, v)
 
     timings = {}
     for label, (B, H, Nq, Nk, Dh) in (("encoder", ATTN_SHAPES[0]),
                                       ("decoder", ATTN_SHAPES[1])):
-        q, k, v = (torch.randn(B, H, n, Dh, device="cuda", generator=gen)
-                   .to(torch.bfloat16) for n in (Nq, Nk, Nk))
+        q, k, v = (randn(B, H, n, Dh).to(torch.bfloat16)
+                   for n in (Nq, Nk, Nk))
+        qkv = randn(B, Nq, 3, H, Dh).to(torch.bfloat16)
+        qs, ks, vs = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         flops = 4.0 * B * H * Nq * Nk * Dh
         nbytes = 2.0 * (2 * B * H * Nq * Dh + 2 * B * H * Nk * Dh)
         bound = max(flops / peak_flops, nbytes / peak_bw) * 1e3
@@ -128,12 +202,18 @@ def check_attention(peak_flops, peak_bw, card):
             "bound_by": "operations" if flops / peak_flops >= nbytes / peak_bw
             else "bytes",
             "max_abs_err": worst[(B, H, Nq, Nk, "bf16")],
+            "max_abs_err_ragged_strided": worst_ragged,
+            "ms_model_views": time_ms(lambda: flash_attention(qs, ks, vs)),
+            "library_ms_model_views": time_ms(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs)),
         }
         timings[label] = t
         print(f"attention bf16 {label} (1,{H},{Nq},{Dh}): kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-              f"({t['bound_by']}) [{card}]")
+              f"({t['bound_by']}); on the model's strided views kernel "
+              f"{t['ms_model_views']:.4f} ms, SDPA "
+              f"{t['library_ms_model_views']:.4f} ms [{card}]")
     return timings
 
 
@@ -182,6 +262,74 @@ def check_gn(peak_bw, card):
             print(f"gn n={n}: kernel {out['ms']:.4f} ms (two launches), "
                   f"plain {out['plain_ms']:.4f} ms, bound "
                   f"{out['bound_ms']:.5f} ms (bytes) [{card}]")
+    return out
+
+
+def check_gn_solve(tcfg, peak_bw, card):
+    """The whole-solve kernel against its plain version (the host loop over
+    the plain sums, run on the same tensors on the card): from a pose near
+    the solution (``testing.gn_problem``), from the identity (several
+    iterations) and on a singular problem (all weights zero: ``ok`` False,
+    T unchanged, one iteration).  Pose within ``GN_POSE_ATOL``, ``ok`` and
+    the iteration count equal, two launches bitwise equal."""
+    import torch
+
+    from mast3r_slam_torch import testing
+    from mast3r_slam_torch.ops import gn
+    from mast3r_slam_torch.ops import lie_sim3 as sim3
+
+    def held(what, pre, T0, expect_ok=True):
+        T1, ok1, it1 = gn.gn_solve(pre, T0, tcfg)
+        T2, ok2, it2 = gn.gn_solve(pre, T0, tcfg)
+        Tp, okp, itp = gn.gn_solve_plain(pre, T0, tcfg)
+        torch.cuda.synchronize()
+        err = (T1 - Tp).abs().max().item()
+        det = torch.equal(T1, T2) and ok1 == ok2 and it1 == it2
+        good = det and err <= GN_POSE_ATOL and ok1 == okp == expect_ok \
+            and it1 == itp
+        if not expect_ok:
+            good = good and torch.equal(T1, T0) and it1 == 1
+        print(f"gn_solve {what}: {it1} iterations (plain {itp}), ok {ok1} "
+              f"(plain {okp}), pose max abs err {err:.3e} (atol "
+              f"{GN_POSE_ATOL:.0e}), bitwise deterministic {det}; "
+              f"{'ok' if good else 'FAIL'}")
+        if not good:
+            print(f"  kernel {T1.tolist()}\n  plain  {Tp.tolist()}")
+            raise SystemExit("gn_solve disagrees with its plain version or "
+                             "is not deterministic")
+        return err, it1
+
+    out = {}
+    for n in (196608, 1000):
+        pre, T = testing.gn_problem(n, seed=n, device="cuda")
+        eye = sim3.identity(device="cuda")
+        err_near, _ = held(f"n={n} from a pose near the solution", pre, T)
+        err_far, iters = held(f"n={n} from the identity", pre, eye)
+        zeros = torch.zeros(n, device="cuda")
+        singular = gn.GNPointData(pre.pts[:3].T, pre.pts[3:7], zeros, zeros)
+        held(f"n={n} singular (all weights zero)", singular, T,
+             expect_ok=False)
+        if n == 196608:
+            out = {
+                "ms": time_ms(lambda: gn.gn_solve_launch(pre.pts, eye, tcfg),
+                              reps=50),
+                "solve_ms": time_ms(lambda: gn.gn_solve(pre, eye, tcfg),
+                                    reps=20),
+                "plain_ms": time_ms(
+                    lambda: gn.gn_solve_plain(pre, eye, tcfg), reps=3,
+                    warmup=1),
+                "library_ms": None,
+                "bound_ms": 9 * 4.0 * n / peak_bw * 1e3,
+                "bound_by": "bytes",
+                "max_abs_err": max(err_near, err_far),
+                "iterations": iters,
+            }
+            print(f"gn_solve n={n} from the identity, {iters} iterations: "
+                  f"kernel {out['ms']:.4f} ms (one launch), with its one "
+                  f"copy back {out['solve_ms']:.4f} ms, plain loop "
+                  f"{out['plain_ms']:.4f} ms, "
+                  f"bound {out['bound_ms']:.5f} ms (bytes: the points read "
+                  f"once) [{card}]")
     return out
 
 
@@ -393,13 +541,15 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
     args = main_torch.parse_args(["--no-viz"])
     torch.cuda.synchronize()
 
-    flash_attention.launches = gn.gn_sums.launches = pack_rows.launches = 0
+    flash_attention.launches = pack_rows.launches = 0
+    gn.gn_sums.launches = gn.gn_solve.launches = 0
     t0 = time.perf_counter()
     summary = main_torch.run(system, dataset, args)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {"attention": flash_attention.launches,
                 "gn_accumulate": gn.gn_sums.launches,
+                "gn_solve": gn.gn_solve.launches,
                 "pack_rows": pack_rows.launches}
 
     stats = summary["stats"]
@@ -424,16 +574,20 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
           f"{expect_attn} = ({mcfg.enc_depth} + {4 * mcfg.dec_depth}) x {n} "
           f"frames); pack launches {launches['pack_rows']} (expected "
           f"{expect_pack} = {per_match} tables x {tracked} tracked frames); "
-          f"GN launches {launches['gn_accumulate']} "
-          f"({'one per GN iteration' if joint else 'none: per-component Huber'})")
+          f"gn_solve launches {launches['gn_solve']} "
+          f"({'one per tracked frame' if joint else 'none: per-component Huber'}"
+          f", {system.tracker.gn_iters_total} GN iterations in all); "
+          f"gn_accumulate launches {launches['gn_accumulate']}")
     if launches["attention"] != expect_attn:
         raise SystemExit("attention launches do not match the drive")
     if launches["pack_rows"] != expect_pack:
         raise SystemExit("pack launches do not match the drive")
-    expect_gn = system.tracker.gn_iters_total if joint else 0
-    if launches["gn_accumulate"] != expect_gn or (joint and expect_gn < 1):
-        raise SystemExit(f"GN launches {launches['gn_accumulate']} do not "
-                         f"match the drive ({expect_gn} GN iterations)")
+    expect_gn = tracked if joint else 0
+    if launches["gn_solve"] != expect_gn or launches["gn_accumulate"] or \
+            system.tracker.gn_iters_total < tracked:
+        raise SystemExit(f"gn_solve launches {launches['gn_solve']} do not "
+                         f"match the drive ({expect_gn} solves)")
+    launches["gn_iterations"] = system.tracker.gn_iters_total
 
     n_kf = system.arena.n_size
     tensors = {
@@ -484,7 +638,7 @@ def drive_oracle(card):
         system = SLAMSystem(cfg, engine, (seq.h, seq.w),
                             K=seq.K if cfg["use_calib"] else None, buffer=32,
                             device="cuda")
-        gn.gn_sums.launches = 0
+        gn.gn_solve.launches = 0
         for i in range(len(seq)):
             system.process_frame(i, seq.images[i])
         system.terminate()
@@ -495,8 +649,8 @@ def drive_oracle(card):
             ate = evaluate.ate_rmse(f"{tmp}/gt.txt", f"{tmp}/est.txt",
                                     max_diff=0.05)
         print(f"oracle drive {mode}: ATE RMSE {ate:.6f} m (limit "
-              f"{ORACLE_ATE_LIMIT[mode]} m), stats {system.stats}, GN kernel "
-              f"launches {gn.gn_sums.launches} [{card}]")
+              f"{ORACLE_ATE_LIMIT[mode]} m), stats {system.stats}, gn_solve "
+              f"launches {gn.gn_solve.launches} [{card}]")
         if system.stats["skipped"] or system.stats["keyframes"] < 2 or \
                 not ate < ORACLE_ATE_LIMIT[mode]:
             raise SystemExit(f"oracle drive {mode} failed")
@@ -509,14 +663,16 @@ def breakdown(system, img, card, label, full=True):
     keyframe, on the drive's own state: encode, decode + heads, dense match
     (quantisation included, as the engine runs it), the packed tables of
     that match alone, the GN pose solve (inputs captured from a
-    ``track_step``) and the whole ``track_step``.  Each figure is the mean
+    ``track_step``), the whole ``track_step`` and, beside the one-launch
+    solve, the loop it replaced on the same inputs (the sums' kernel and a
+    copy back per iteration, the rest on the host).  Each figure is the mean
     of five back-to-back runs after one warm-up.  ``full=False`` times the
     matcher's stages and the step only."""
     import torch
 
     from mast3r_slam_torch import tracker as trk
     from mast3r_slam_torch.frame import arena_get
-    from mast3r_slam_torch.ops import matching
+    from mast3r_slam_torch.ops import gn, matching
     from mast3r_slam_torch.ops.pack import pack_rows
 
     eng = system.engine
@@ -562,6 +718,14 @@ def breakdown(system, img, card, label, full=True):
     finally:
         trk.opt_pose_ray_dist_sim3 = solve
     iters = solve(*captured["args"])[2]
+    Xf_m, Xk_m, T0, Qk_m, valid_m, tcfg = captured["args"]
+
+    def per_iteration_loop():
+        # the loop gn_solve replaced: the sums' kernel and a copy back per
+        # iteration, the 7x7 solve and the retraction on the host
+        pre = trk.ray_dist_point_data(Xf_m, Xk_m, Qk_m, valid_m, tcfg)
+        return gn.gn_loop(
+            lambda T: gn.gn_accumulate(pre, T, tcfg.huber_k), T0, tcfg)
 
     def step():
         return trk.track_step(eng, frame, kf, idx0, system.tracker.cfg)
@@ -573,9 +737,13 @@ def breakdown(system, img, card, label, full=True):
         stages = {"encode": lambda: eng.encode(normed),
                   "decode_and_heads": lambda: eng.decode_pair(*args),
                   **stages}
+        if tcfg.joint_ray_huber:
+            stages["gn_per_iteration_loop"] = per_iteration_loop
     out = {name: time_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
     for name, ms in out.items():
         note = {"gn_solve": f" ({iters} GN iterations)",
+                "gn_per_iteration_loop": f" ({per_iteration_loop()[2]} GN "
+                f"iterations, the loop before gn_solve)",
                 "pack": f" ({len(tables)} tables)"}.get(name, "")
         print(f"{label} stage {name}: {ms:.3f} ms{note} [{card}]")
     out["gn_iters"] = iters
@@ -635,11 +803,14 @@ def main(argv=None):
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 print(f"  {src}: {line.strip()}")
+
+    tc_ops = tensor_core_instructions()
 
     from mast3r_slam_torch.ops.matching import MatchingConfig
     from mast3r_slam_torch.testing import make_clip
+    from mast3r_slam_torch.tracker import TrackerConfig
     from mast3r_slam_torch.utils.config import (apply_reference_exact,
                                                 load_config)
 
@@ -648,6 +819,7 @@ def main(argv=None):
 
     attn = check_attention(peak_flops, peak_bw, card)
     gnt = check_gn(peak_bw, card)
+    gnst = check_gn_solve(TrackerConfig.from_config(cfg), peak_bw, card)
     packt = check_pack(MatchingConfig.from_dict(cfg["matching"]), peak_bw,
                        card)
     check_small_model()
@@ -672,16 +844,28 @@ def main(argv=None):
         dict(name="attention", route="cuda",
              source="mast3r_slam_torch/csrc/attention.cu",
              replaces="mast3r_slam_tpu/ops/attention.py:28",
-             launches=launches["attention"], **attn["encoder"]),
-        dict(name="gn_accumulate", route="cuda",
+             launches=launches["attention"], tensor_core_sass=tc_ops,
+             **attn["encoder"]),
+        # the sums' arithmetic (accumulate_point) reaches the card through
+        # two entries: its count is the launches of either on the main path
+        dict(name="gn", route="cuda",
              source="mast3r_slam_torch/csrc/gn.cu",
              replaces="mast3r_slam_tpu/ops/gn_pallas.py:40",
-             launches=launches["gn_accumulate"], **gnt),
+             launches=launches["gn_accumulate"] + launches["gn_solve"],
+             entry_launches={"gn_accumulate": launches["gn_accumulate"],
+                             "gn_solve": launches["gn_solve"]}, **gnt),
+        dict(name="gn_solve", route="cuda",
+             source="mast3r_slam_torch/csrc/gn.cu",
+             replaces="mast3r_slam_tpu/tracker.py:343",
+             launches=launches["gn_solve"],
+             gn_iterations=launches["gn_iterations"], **gnst),
         dict(name="pack_rows", route="cuda",
              source="mast3r_slam_torch/csrc/pack.cu",
              replaces="mast3r_slam_tpu/ops/pack.py:73",
              launches=launches["pack_rows"], **packt),
     ]
+    if not all(k["launches"] > 0 for k in kernels):
+        raise SystemExit("a kernel of the main path was not launched by it")
     print(f"attention decoder shape: {json.dumps(attn['decoder'])}")
     print(f"stages: {json.dumps(stages)}")
     print(f"stages reference-exact: {json.dumps(stages_exact)}")

@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and (Path(cand) / "bin" / "nvcc").exists():
             return str(Path(cand) / "bin" / "nvcc")
@@ -37,7 +37,8 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is, or will be, built."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
@@ -46,12 +47,12 @@ def _lib_path(name: str) -> Path:
 def _start(name: str):
     """Start nvcc for one source; returns (Popen, tmp path, final path) or
     None when the library is already built."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -86,7 +87,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib
 

@@ -111,9 +111,14 @@ class Mlp(nn.Module):
 
 
 def _attention(q, k, v, dtype):
-    """(B, H, N, Dh) attention in the trunk dtype (mast3r.py:109)."""
-    return flash_attention(q.to(dtype).contiguous(), k.to(dtype).contiguous(),
-                           v.to(dtype).contiguous())
+    """(B, H, N, Dh) attention in the trunk dtype (mast3r.py:109), merged
+    back to (B, N, H * Dh).  q, k and v go in as the strided views they are
+    (the kernel wants only the last dimension contiguous), and the kernel's
+    output already lies as (B, N, H, Dh), so the merge is a view on the
+    card."""
+    B, H, N, Dh = q.shape
+    out = flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+    return out.transpose(1, 2).reshape(B, N, H * Dh)
 
 
 class SelfAttention(nn.Module):
@@ -132,8 +137,7 @@ class SelfAttention(nn.Module):
         q, k, v = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
         q = rope_2d(q, xpos, self.rope_freq)
         k = rope_2d(k, xpos, self.rope_freq)
-        out = _attention(q, k, v, self.dtype)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return self.proj(_attention(q, k, v, self.dtype))
 
 
 class CrossAttention(nn.Module):
@@ -148,7 +152,7 @@ class CrossAttention(nn.Module):
         self.proj = Dense(dim, dim, dtype)
 
     def forward(self, query, key, value, qpos, kpos):
-        B, Nq, C = query.shape
+        B, _, C = query.shape
         Dh = C // self.num_heads
 
         def heads(t, lin):
@@ -157,8 +161,7 @@ class CrossAttention(nn.Module):
         q = rope_2d(heads(query, self.projq), qpos, self.rope_freq)
         k = rope_2d(heads(key, self.projk), kpos, self.rope_freq)
         v = heads(value, self.projv)
-        out = _attention(q, k, v, self.dtype)
-        return self.proj(out.transpose(1, 2).reshape(B, Nq, C))
+        return self.proj(_attention(q, k, v, self.dtype))
 
 
 class EncoderBlock(nn.Module):

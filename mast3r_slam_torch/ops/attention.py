@@ -2,9 +2,12 @@
 version.
 
 Mirrors ``mast3r_slam_tpu/ops/attention.py``: ``flash_attention`` replaces
-the Pallas ``_attn_kernel`` (attention.py:28) with ``csrc/attention.cu``.
-Layout is the JAX package's: q (B, H, Nq, Dh), k and v (B, H, Nk, Dh),
-output (B, H, Nq, Dh) in q's dtype, softmax in f32.
+the Pallas ``_attn_kernel`` (attention.py:28) with ``csrc/attention.cu``
+(bf16 on the tensor cores, f32 on plain FMA).  Layout is the JAX package's:
+q (B, H, Nq, Dh), k and v (B, H, Nk, Dh), output (B, H, Nq, Dh) in q's
+dtype, softmax in f32.  The kernel reads q, k and v through their strides,
+so the ``(B, N, H, Dh)``-strided views the model holds need no copy, and it
+writes the output as such a view: ``out.transpose(1, 2)`` is contiguous.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ def attention_plain(q, k, v):
 def _lib():
     lib = _build.load("attention")
     fn = lib.attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -43,8 +46,6 @@ def _check_kernel_inputs(q, k, v):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention kernel takes bf16 or f32, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous q, k, v")
     B, H, _, Dh = q.shape
     if Dh not in _KERNEL_DH:
         raise ValueError(f"flash_attention kernel is built for Dh in "
@@ -53,11 +54,24 @@ def _check_kernel_inputs(q, k, v):
             or k.shape[3] != Dh:
         raise ValueError(f"incompatible shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    # the kernel copies rows of Dh in 16-byte pieces
+    per16 = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention kernel needs a contiguous "
+                             f"last dimension, {name} has strides "
+                             f"{t.stride()}")
+        if t.data_ptr() % 16 or any(
+                t.stride(d) % per16 for d in range(3) if t.shape[d] > 1):
+            raise ValueError(f"flash_attention kernel needs 16-byte aligned "
+                             f"rows, {name} has strides {t.stride()}")
 
 
 def flash_attention(q, k, v):
     """Exact fused attention (attention.py:47).  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/attention.cu`` or raise."""
+    version; CUDA tensors launch ``csrc/attention.cu`` or raise.  q, k and v
+    may be strided views with a contiguous last dimension; the kernel's
+    output is a (B, H, Nq, Dh) view of (B, Nq, H, Dh) memory."""
     devs = {q.device, k.device, v.device}
     if len(devs) != 1:
         raise ValueError(f"q, k, v on different devices: {devs}")
@@ -68,10 +82,13 @@ def flash_attention(q, k, v):
     _check_kernel_inputs(q, k, v)
     B, H, Nq, Dh = q.shape
     Nk = k.shape[2]
-    out = torch.empty_like(q)
+    out = torch.empty((B, Nq, H, Dh), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *(t.stride(d) for t in (q, k, v, out) for d in range(3)))
     err = _lib().attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B * H, Nq, Nk, Dh, _DTYPES[q.dtype], 1.0 / (Dh ** 0.5),
+        B, H, Nq, Nk, Dh, _DTYPES[q.dtype], strides, 1.0 / (Dh ** 0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_fwd")
     flash_attention.launches += 1

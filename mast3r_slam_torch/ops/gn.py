@@ -1,26 +1,33 @@
-"""Normal equations of the ray+distance GN tracker: the CUDA kernel and its
-plain version.
+"""The ray+distance GN tracker solve: the CUDA kernels and their plain
+versions.
 
-Counterpart of ``mast3r_slam_tpu/ops/gn_pallas.py``: ``gn_accumulate``
-replaces the Pallas ``_gn_kernel`` (gn_pallas.py:40) with ``csrc/gn.cu``.
-One pass over the matched points at pose T gives the 27 sums of the closed
-form under the joint ray Huber weight (tracker.py:203-298), folded into
-H (7, 7), g (7,) and the cost.
+Counterpart of ``mast3r_slam_tpu/ops/gn_pallas.py`` and of the device
+``while_loop`` around it (tracker.py:343-374).  One pass over the matched
+points at pose T gives the 27 sums of the closed form under the joint ray
+Huber weight (tracker.py:203-298), folded into H (7, 7), g (7,) and the
+cost: ``gn_sums`` replaces the Pallas ``_gn_kernel`` (gn_pallas.py:40) with
+``csrc/gn.cu``.  ``gn_solve`` runs the whole solve (every iteration's sums,
+7x7 solve, retraction and convergence test) in one launch of the same
+source's cooperative kernel and reads its result back once; its plain
+version ``gn_solve_plain`` is the host loop ``gn_loop`` over the plain sums.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .. import _build
 from . import lie_sim3 as sim3
+from .robust import check_convergence, solve_spd_small
 
 N_ACC = 27
 _THREADS = 256
 _POINTS_PER_THREAD = 4
 _MAX_BLOCKS = 1024
+_SOLVE_OUT = 11     # gn_solve's result: T (8), ok, iterations run, last cost
 
 # H (7x7) as entries of the 27 sums (slot 27 is a zero), with signs
 # (gn_pallas.py:188-196); layout [t(3), w(3), s(1)]
@@ -139,6 +146,12 @@ def _lib():
                    ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.gn_solve
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -149,17 +162,21 @@ def num_blocks(n: int) -> int:
     return max(1, min(-(-n // per_block), _MAX_BLOCKS))
 
 
+def _check_points(pts, what):
+    if pts.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {pts.device}")
+    if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[0] != 9 \
+            or not pts.is_contiguous() or pts.shape[1] < 1:
+        raise ValueError(f"{what} kernel takes a contiguous (9, n) f32 "
+                         f"tensor")
+
+
 def gn_sums(pts, scal, huber_k):
     """The 27 sums (27,) f32.  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/gn.cu`` or raise."""
     if pts.device.type == "cpu":
         return gn_sums_plain(pts, scal, huber_k)
-    if pts.device.type != "cuda":
-        raise ValueError(f"gn_sums: unsupported device {pts.device}")
-    if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[0] != 9 \
-            or not pts.is_contiguous():
-        raise ValueError("gn_sums kernel takes a contiguous (9, n) f32 "
-                         "tensor")
+    _check_points(pts, "gn_sums")
     scal = scal.to(device=pts.device, dtype=torch.float32,
                    non_blocking=True).contiguous()
     if scal.shape != (13,):
@@ -206,3 +223,79 @@ def gn_accumulate(pre: GNPointData, T, huber_k):
     assembled."""
     scal = rot_scalars(T)
     return assemble(gn_sums(pre.pts, scal, huber_k).cpu())
+
+
+def gn_loop(normal_equations, T_init, cfg):
+    """The GN iteration on the host (the ``while_loop`` of
+    tracker.py:363-374): ``normal_equations(T)`` gives (H, g, cost) on the
+    host for the pose T (8,) f32 on the host; the 7x7 solve, the retraction
+    and the convergence test run there in f32.  ``cfg`` carries
+    ``max_iters``, ``rel_error`` and ``delta_norm``.  Returns (T on
+    T_init's device, ok, iterations run)."""
+    T = T_init.detach().to("cpu", torch.float32)
+    old_cost = math.inf
+    ok = True
+    it = 0
+    while it < cfg.max_iters:
+        H, g, cost = normal_equations(T)                    # host: the sync
+        tau, spd_ok = solve_spd_small(H, g)
+        solve_ok = bool(spd_ok) and bool(torch.isfinite(tau).all())
+        if not solve_ok:
+            tau = torch.zeros_like(tau)
+        conv = bool(check_convergence(cfg.rel_error, cfg.delta_norm,
+                                      old_cost, cost, tau))
+        if solve_ok:
+            T = sim3.retr(T, tau)
+        old_cost = cost
+        ok = ok and solve_ok
+        it += 1
+        if conv or not solve_ok:
+            break
+    return T.to(T_init.device), ok, it
+
+
+def gn_solve_plain(pre: GNPointData, T_init, cfg):
+    """The whole solve in plain torch: the host loop over the plain sums, one
+    sync per iteration.  The kernel's plain version and the CPU path."""
+    return gn_loop(lambda T: gn_accumulate_plain(pre, T, cfg.huber_k),
+                   T_init, cfg)
+
+
+def gn_solve_launch(pts, T_init, cfg):
+    """Launch the cooperative kernel on the current stream; returns its
+    device buffer [T (8), ok, iterations run, last cost] without a sync."""
+    T0 = T_init.detach().to(device=pts.device, dtype=torch.float32,
+                            non_blocking=True).contiguous()
+    scratch = torch.empty((2, _MAX_BLOCKS, N_ACC), dtype=torch.float32,
+                          device=pts.device)
+    out = torch.empty((_SOLVE_OUT,), dtype=torch.float32, device=pts.device)
+    err = _lib().gn_solve(
+        pts.data_ptr(), pts.shape[1], T0.data_ptr(), float(cfg.huber_k),
+        float(cfg.rel_error), float(cfg.delta_norm), int(cfg.max_iters),
+        scratch.data_ptr(), _MAX_BLOCKS, out.data_ptr(),
+        torch.cuda.current_stream(pts.device).cuda_stream)
+    _build.check(err, "gn_solve")
+    gn_solve.launches += 1
+    return out
+
+
+def gn_solve(pre: GNPointData, T_init, cfg):
+    """The whole joint-ray-Huber solve from ``T_init`` (8,) (tracker.py:343-
+    374): (T on T_init's device, ok, iterations run).  CPU points take the
+    plain version; CUDA points launch the cooperative kernel of
+    ``csrc/gn.cu`` once, or raise, and its small result buffer is the one
+    copy back to the host."""
+    pts = pre.pts
+    if pts.device.type == "cpu":
+        return gn_solve_plain(pre, T_init, cfg)
+    _check_points(pts, "gn_solve")
+    if T_init.shape != (8,):
+        raise ValueError(f"gn_solve: T_init must be (8,), got "
+                         f"{tuple(T_init.shape)}")
+    out = gn_solve_launch(pts, T_init, cfg)
+    host = out.cpu()                                        # the one sync
+    T = out[:8] if T_init.device == pts.device else host[:8].to(T_init.device)
+    return T.to(T_init.dtype), bool(host[8]), int(host[9])
+
+
+gn_solve.launches = 0

@@ -1,9 +1,12 @@
 """Robust weights, convergence test and the small SPD solve of the GN loops.
 
 Mirrors ``mast3r_slam_tpu/ops/robust.py``.  The JAX version returns traced
-booleans for a device-side ``while_loop``; here the GN loop runs in Python,
-so the predicates return 0-d bool tensors the caller reads once per
-iteration.
+booleans for a device-side ``while_loop``.  Here these functions serve the
+host loop ``ops.gn.gn_loop`` (the per-component and calibrated solves, and
+the plain version of the joint-ray-Huber solve), so the predicates return
+0-d bool tensors the caller reads once per iteration; on the card the
+joint-ray-Huber solve runs the same steps inside ``csrc/gn.cu``
+(``solve_spd7``, ``converged``).
 """
 
 from __future__ import annotations

@@ -3,20 +3,20 @@
 Mirrors ``mast3r_slam_tpu/tracker.py``: the uncalibrated ray+distance solve
 (under the production joint ray Huber weight, or the reference-exact
 per-component weights) and the calibrated pixel + log-depth solve.  The JAX
-version runs the GN loop as a device ``while_loop``; here it is a Python
-loop with one host sync per iteration for the convergence test, the
-reference's own ``.item()`` cadence.  Under ``joint_ray_huber`` each
-iteration's normal equations come from ``ops.gn.gn_accumulate`` (the CUDA
-kernel on the card, its plain closed form on the CPU); the other two bodies
-expand the whitened Jacobian rows on the points' device and reduce them
-with one matrix product, as in JAX.  The 7x7 solve, retraction and
-convergence test then run on the host in f32, on the sums the sync has
-already brought over.
+version runs the GN loop as a device ``while_loop``.  Under
+``joint_ray_huber`` the port does the same on the card: ``ops.gn.gn_solve``
+runs every iteration (the sums, the 7x7 solve, the retraction and the
+convergence test) in one kernel launch with one copy back per solve; on the
+CPU it is the host loop over the plain closed form.  The other two bodies
+(per-component weights, calibrated) have no TPU kernel and keep the host
+loop ``ops.gn.gn_loop``, one sync per iteration: they expand the whitened
+Jacobian rows on the points' device and reduce them with one matrix
+product, as in JAX, and the 7x7 solve, retraction and convergence test run
+on the host in f32 on the sums the sync has brought over.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -30,7 +30,7 @@ from .ops.geometry import (
     point_to_ray_dist,
     project_calib,
 )
-from .ops.robust import check_convergence, huber, solve_spd_small
+from .ops.robust import huber
 
 
 class TrackerConfig(NamedTuple):
@@ -109,31 +109,21 @@ def _normal_equations_7x7(sqrt_info, r, J, huber_k):
     return H.cpu(), g.cpu(), cost.cpu()
 
 
-def _gn_loop(normal_equations, T_init, cfg: TrackerConfig):
-    """The GN iteration shared by the three solves (the ``while_loop`` of
-    tracker.py:363-374): ``normal_equations(T)`` gives (H, g, cost) on the
-    host for the pose T (8,) f32 on the host.  Returns (T on T_init's
-    device, ok, iterations run)."""
-    T = T_init.detach().to("cpu", torch.float32)
-    old_cost = math.inf
-    ok = True
-    it = 0
-    while it < cfg.max_iters:
-        H, g, cost = normal_equations(T)                    # host: the sync
-        tau, spd_ok = solve_spd_small(H, g)
-        solve_ok = bool(spd_ok) and bool(torch.isfinite(tau).all())
-        if not solve_ok:
-            tau = torch.zeros_like(tau)
-        conv = bool(check_convergence(cfg.rel_error, cfg.delta_norm,
-                                      old_cost, cost, tau))
-        if solve_ok:
-            T = sim3.retr(T, tau)
-        old_cost = cost
-        ok = ok and solve_ok
-        it += 1
-        if conv or not solve_ok:
-            break
-    return T.to(T_init.device), ok, it
+def _ray_dist_weights(Xk, Qk, valid, cfg: TrackerConfig):
+    """(w_ray (n,), w_dist (n,), dk (n,)): the whitening weights of the ray
+    and distance residuals and the keyframe points' distances
+    (tracker.py:146-151)."""
+    vq = (valid * torch.sqrt(Qk))[:, 0]
+    dk = torch.sqrt(torch.clamp(torch.sum(Xk * Xk, dim=-1), min=1e-24))
+    return (1.0 / cfg.sigma_ray) * vq, (1.0 / cfg.sigma_dist) * vq, dk
+
+
+def ray_dist_point_data(Xf, Xk, Qk, valid, cfg: TrackerConfig):
+    """The per-point inputs of the joint-ray-Huber solve, built once per
+    solve (tracker.py:367)."""
+    w_ray, w_dist, dk = _ray_dist_weights(Xk, Qk, valid, cfg)
+    rd_k_t = torch.cat([Xk.T / dk[None, :], dk[None, :]])
+    return gn.GNPointData(Xf, rd_k_t, w_ray, w_dist)
 
 
 def opt_pose_ray_dist_sim3(Xf, Xk, T_init, Qk, valid, cfg: TrackerConfig):
@@ -146,16 +136,11 @@ def opt_pose_ray_dist_sim3(Xf, Xk, T_init, Qk, valid, cfg: TrackerConfig):
     component weights, tracker.py:300-341) the four residual rows and their
     fused pose Jacobians are expanded on the points' device and reduced to
     H and g there."""
-    vq = (valid * torch.sqrt(Qk))[:, 0]
-    w_ray = (1.0 / cfg.sigma_ray) * vq
-    w_dist = (1.0 / cfg.sigma_dist) * vq
-    dk = torch.sqrt(torch.clamp(torch.sum(Xk * Xk, dim=-1), min=1e-24))
     if cfg.joint_ray_huber:
-        rd_k_t = torch.cat([Xk.T / dk[None, :], dk[None, :]])
-        pre = gn.GNPointData(Xf, rd_k_t, w_ray, w_dist)
-        return _gn_loop(lambda T: gn.gn_accumulate(pre, T, cfg.huber_k),
-                        T_init, cfg)
+        return gn.gn_solve(ray_dist_point_data(Xf, Xk, Qk, valid, cfg),
+                           T_init, cfg)
 
+    w_ray, w_dist, dk = _ray_dist_weights(Xk, Qk, valid, cfg)
     rd_k = torch.cat([Xk / dk[:, None], dk[:, None]], dim=-1)      # (n, 4)
     sqrt_info = torch.stack([w_ray, w_ray, w_ray, w_dist], dim=-1)
 
@@ -165,7 +150,7 @@ def opt_pose_ray_dist_sim3(Xf, Xk, T_init, Qk, valid, cfg: TrackerConfig):
         return _normal_equations_7x7(
             sqrt_info, rd_k - rd, _fuse_pose_jacobian(J_rd, p), cfg.huber_k)
 
-    return _gn_loop(per_component, T_init, cfg)
+    return gn.gn_loop(per_component, T_init, cfg)
 
 
 def opt_pose_calib_sim3(Xf, Xk, T_init, Qk, valid, meas_k, valid_meas_k, K,
@@ -188,7 +173,7 @@ def opt_pose_calib_sim3(Xf, Xk, T_init, Qk, valid, meas_k, valid_meas_k, K,
         return _normal_equations_7x7(
             si, meas_k - pz, _fuse_pose_jacobian(J_pz, Xf_Ck), cfg.huber_k)
 
-    return _gn_loop(pixel_logdepth, T_init, cfg)
+    return gn.gn_loop(pixel_logdepth, T_init, cfg)
 
 
 class TrackResult(NamedTuple):

@@ -1,7 +1,9 @@
 """Attention: the port's plain version against the JAX Pallas kernel (run in
 interpret mode, as the JAX tests run it) and against XLA's attention, f32,
-self and cross shapes, atol 1e-5.  The CUDA kernel itself is held against
-the plain version on the card in ``test_torch_kernels.py``.
+self and cross shapes, atol 1e-5; strided (B, N, H, Dh) views, as the model
+hands them over, against the contiguous call bit for bit.  The CUDA kernel
+itself is held against the plain version on the card in
+``test_torch_kernels.py``.
 """
 
 import jax
@@ -63,3 +65,20 @@ def test_plain_keeps_bf16_dtype():
     q, k, v = (t.to(torch.bfloat16)
                for t in map(torch.from_numpy, _inputs(SHAPES[1], 3)))
     assert tattn.attention_plain(q, k, v).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_strided_views_equal_the_contiguous_call(shape):
+    """q, k and v as (B, H, N, Dh) views of (B, N, H, Dh) memory, and as
+    views of one packed (B, N, 3, H, Dh) product, give the bits of the
+    contiguous call."""
+    q, k, v = map(torch.from_numpy, _inputs(shape, 4))
+    ref = tattn.flash_attention(q, k, v)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    assert not any(t.is_contiguous() for t in views if t.shape[2] > 1)
+    assert torch.equal(tattn.flash_attention(*views), ref)
+    if q.shape == k.shape:
+        qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], dim=2)
+        packed = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+        assert torch.equal(tattn.flash_attention(*packed), ref)

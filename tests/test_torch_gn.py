@@ -3,9 +3,12 @@
 ``gn_accumulate_plain`` is held against the JAX Pallas kernel run in
 interpret mode (rtol 1e-4, relative to each output's largest entry), and
 the port's ``opt_pose_ray_dist_sim3`` against the JAX solve, which takes
-the same kernel in interpret mode off the TPU (pose atol 1e-4).  The CUDA
-kernel is held against the plain version on the card in
-``test_torch_kernels.py``.
+the same kernel in interpret mode off the TPU (pose atol 1e-4).
+``gn_solve_plain``, the plain version of the whole-solve kernel, is held
+against the same JAX solve where the loop ends by ``max_iters``, by
+``delta_norm`` in its first iteration and on a singular system (pose atol
+1e-5, ``ok`` and the iteration count equal).  The CUDA kernels are held
+against the plain versions on the card in ``test_torch_kernels.py``.
 """
 
 import jax.numpy as jnp
@@ -158,6 +161,56 @@ def test_opt_pose_ray_dist_sim3_matches_jax(seed, outliers):
                                rtol=0)
     if not outliers:   # the solve found the pose the points were made with
         np.testing.assert_allclose(Tt.numpy(), T_true, atol=5e-3, rtol=0)
+
+
+def _solve_both(Xf, Xk, T0, Q, valid, jcfg, tcfg):
+    Tj, okj, itj = jtrk.opt_pose_ray_dist_sim3(
+        *map(jnp.asarray, (Xf, Xk, T0, Q, valid)), jcfg)
+    Xf, Xk, T0, Q, valid = map(torch.from_numpy, (Xf, Xk, T0, Q, valid))
+    pre = ttrk.ray_dist_point_data(Xf, Xk, Q, valid, tcfg)
+    Tt, okt, itt = tgn.gn_solve_plain(pre, T0, tcfg)
+    return (np.asarray(Tj), bool(okj), int(itj)), (Tt.numpy(), okt, itt)
+
+
+@pytest.mark.parametrize("case", ["max_iters", "delta_norm", "singular"])
+def test_gn_solve_plain_matches_jax_at_the_loop_exits(case):
+    """The three ways out of the loop that the two drives above do not
+    take: the iteration cap, the update-norm test in the first iteration
+    (``old_cost`` is still infinite, so the cost test cannot fire) and a
+    failed solve (``ok`` False, T as it was, one iteration)."""
+    Xf, Xk, Q, valid, _ = _problem(2000, seed=5, noise=0.002)
+    jcfg, tcfg = _tracker_configs()
+    T0 = np.array(jsim3.identity())
+    if case == "max_iters":
+        jcfg, tcfg = jcfg._replace(max_iters=2), tcfg._replace(max_iters=2)
+    elif case == "delta_norm":    # start where the solve ends
+        T0 = np.array(jtrk.opt_pose_ray_dist_sim3(
+            *map(jnp.asarray, (Xf, Xk, T0, Q, valid)), jcfg)[0])
+    else:
+        valid = np.zeros_like(valid)
+    (Tj, okj, itj), (Tt, okt, itt) = _solve_both(Xf, Xk, T0, Q, valid, jcfg,
+                                                 tcfg)
+    assert okt == okj == (case != "singular")
+    assert itt == itj == {"max_iters": 2, "delta_norm": 1, "singular": 1}[case]
+    np.testing.assert_allclose(Tt, Tj, atol=1e-5, rtol=0)
+    if case == "singular":
+        assert np.array_equal(Tt, T0)
+
+
+def test_gn_solve_takes_plain_path_on_cpu():
+    """On CPU tensors ``gn_solve`` is the plain loop and counts no kernel
+    launch; ``opt_pose_ray_dist_sim3`` goes through it."""
+    Xf, Xk, Q, valid, _ = _problem(500, seed=3)
+    _, tcfg = _tracker_configs()
+    Xf, Xk, Q, valid = map(torch.from_numpy, (Xf, Xk, Q, valid))
+    pre = ttrk.ray_dist_point_data(Xf, Xk, Q, valid, tcfg)
+    T0 = tsim3.identity()
+    before = tgn.gn_solve.launches
+    got = tgn.gn_solve(pre, T0, tcfg)
+    assert tgn.gn_solve.launches == before
+    for ref in (tgn.gn_solve_plain(pre, T0, tcfg),
+                ttrk.opt_pose_ray_dist_sim3(Xf, Xk, T0, Q, valid, tcfg)):
+        assert torch.equal(got[0], ref[0]) and got[1:] == ref[1:]
 
 
 @pytest.mark.parametrize("block,knob,value", [
