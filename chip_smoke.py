@@ -8,8 +8,12 @@ on the card at the shapes the main path gives it, and times it beside its
 bound, its plain version and (where one exists) a single PyTorch library
 call.  Then it drives the port as a user would:
 
+* the network's heads: a small model's f32 and bf16 heads on the card
+  against the CPU, then ViT-L bf16 heads against f32 heads of the same
+  weights, with decode + heads timed in both dtypes;
 * ``main_torch.run`` (the frame loop of ``main_torch.py``) at full ViT-L
-  width on 384x512 frames with seeded random weights and ``config/base.yaml``
+  width on 384x512 frames with seeded random weights, bf16 heads (as
+  ``main_torch.py`` runs them by default) and ``config/base.yaml``
   unmodified (the production matcher), counting that every attention, GN
   solve and table pack of that drive went through the kernels, and writing
   and reading back the trajectory;
@@ -55,6 +59,8 @@ N_FRAMES, CLIP_SHIFT, CLIP_TEXTURE = 6, 32, 0.5
 N_FRAMES_REFERENCE_EXACT = 3
 # ATE limits of the oracle drives: those of tests/test_pipeline.py
 ORACLE_ATE_LIMIT = {"uncalibrated": 0.05, "calibrated": 0.1}
+# acceptance bounds of bf16 heads against a reference (tests/test_model.py)
+HEAD_COS_MIN, HEAD_REL_DEPTH_MAX, HEAD_REL_CONF_MAX = 0.999, 0.02, 0.05
 
 
 def card_info():
@@ -381,10 +387,12 @@ def pack_tables(cfg, hw_shape):
 def check_pack(match_cfg, peak_bw, card):
     """Kernel C against ``pack_rows_plain``, bitwise (it is a copy): every
     table of the production matcher at 384x512 in int8, f16, bf16 and f32,
-    a batch of 2, a table no tile divides (300 x 7 rows) and offsets beyond
-    the table.  Then the time of each production table in its own dtype
-    beside the plain version, the single advanced-index gather that
-    computes the same table from a zero-padded copy, and the bound."""
+    a batch of 2, a table no tile divides (300 x 7 rows), offsets beyond
+    the table, K = 64 with 96-byte f32 rows, a ragged last tile, rows cut
+    into groups of offsets, and source and output at odd byte offsets.
+    Then the time of each production table in its own dtype beside its
+    bound, the single advanced-index gather that computes the same table
+    from a zero-padded copy, and the plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -425,8 +433,40 @@ def check_pack(match_cfg, peak_bw, card):
                "offsets beyond the table")
     if bool(far.any()):
         raise SystemExit("rows outside the table must read as zeros")
+    # K = 64 offsets of 96-byte f32 rows; n_rows no tile divides; rows so
+    # wide that the offsets are cut into groups
+    same(table("f32", 2, 5000, 24), tuple(range(-300, 340, 10)), -5, 5003,
+         "K=64, 96-byte f32 rows")
+    same(table("f16", 3, 4099, 9), (0, 1, 97, 98), 2, 4099 + 113,
+         "ragged last tile")
+    same(table("f32", 1, 50, 5000), (0, 3, -2, 40), 0, 45,
+         "20000-byte rows in groups of offsets")
+    # source and output at odd byte offsets: contiguous slices of larger
+    # buffers, `shift` bytes past a 16-byte boundary
+    for dt, shift in (("int8", 1), ("int8", 7), ("f16", 2), ("f32", 4)):
+        b, hw, fdim = 2, hw_odd, 9
+        isz = torch.empty((), dtype=dtypes[dt]).element_size()
+        n_in, n_out = b * hw * fdim, b * (hw + 8) * len(offs_odd) * fdim
+        x = table(dt, 1, 1, n_in + 64)[0, 0, shift // isz:][:n_in]
+        buf = torch.zeros(n_out + 64, dtype=dtypes[dt], device="cuda")
+        out = buf[shift // isz:][:n_out].view(b, hw + 8, -1)
+        x = x.view(b, hw, fdim)
+        pack.pack_rows_into(out, x, offs_odd, -4)
+        ref = pack.pack_rows_plain(x, offs_odd, -4, hw + 8)
+        torch.cuda.synchronize()
+        ok = x.data_ptr() % 16 == out.data_ptr() % 16 == shift and \
+            torch.equal(out.view(torch.uint8), ref.view(torch.uint8)) and \
+            not buf[:shift // isz].any() and \
+            not buf[shift // isz + n_out:].any()
+        print(f"pack source and output {shift} bytes past 16-byte alignment "
+              f"{tuple(x.shape)} {x.dtype}: bitwise equal, nothing written "
+              f"outside {ok}")
+        if not ok:
+            raise SystemExit("pack kernel disagrees with its plain version "
+                             "at an odd alignment")
 
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    per_table = []
     for label, dt, fdim, offs, row0, n_rows in tables:
         hw = n_rows + 2 * row0
         x = table(dt, 1, hw, fdim)
@@ -448,72 +488,170 @@ def check_pack(match_cfg, peak_bw, card):
             "library_ms": time_ms(lambda: padded[:, index], reps=20),
             "bound_ms": nbytes / peak_bw * 1e3,
         }
+        plan = pack.tile_plan(tuple(offs), fdim * x.element_size(), n_rows)
         print(f"pack {label} ({hw}, {fdim}) {dt} K={len(offs)} -> "
-              f"{n_rows} x {len(offs) * fdim * x.element_size()} B: kernel "
-              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, gather "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-              f"(bytes) [{card}]")
+              f"{n_rows} x {len(offs) * fdim * x.element_size()} B "
+              f"({plan.rows}-row tiles, {len(plan.span_lo)} spans, "
+              f"{plan.smem} B staged): kernel {t['ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.5f} ms (bytes), "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound; gather "
+              f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
+              f"[{card}]")
+        per_table.append(dict(label=label, **t))
         for key in total:
             total[key] += t[key]
     print(f"pack, the {len(tables)} tables of one match: kernel "
-          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, gather "
-          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms "
+          f"{total['ms']:.4f} ms, bound {total['bound_ms']:.5f} ms, "
+          f"{100 * total['bound_ms'] / total['ms']:.1f}% of bound; gather "
+          f"{total['library_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms "
           f"[{card}]")
-    total.update(bound_by="bytes", max_abs_err=0.0)
+    total.update(bound_by="bytes", max_abs_err=0.0, tables=per_table)
     return total
+
+
+def head_agreement(res, ref):
+    """The acceptance figures of bf16 heads against a reference
+    (``tests/test_model.py:161-195``) over one view's (X, C, D) on the
+    card: 1 - cosine of pts3d and desc, mean relative depth error, mean
+    relative confidence error."""
+    import torch
+
+    def one_minus_cos(a, b):
+        a, b = a.double().flatten(0, -2), b.double().flatten(0, -2)
+        cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-12)
+        return 1.0 - cos.mean().item()
+
+    X, C, D = (t.float() for t in res)
+    X0, C0, D0 = (t.float() for t in ref)
+    d, d0 = X.norm(dim=-1), X0.norm(dim=-1)
+    out = {"pts3d_1_minus_cos": one_minus_cos(X, X0),
+           "desc_1_minus_cos": one_minus_cos(D, D0),
+           "rel_depth": ((d - d0).abs() / (d0.abs() + 1e-6)).mean().item(),
+           "rel_conf": ((C - C0).abs().mean()
+                        / (C0.abs().mean() + 1e-9)).item()}
+    out["ok"] = bool(torch.isfinite(X).all() and torch.isfinite(D).all()
+                     and out["pts3d_1_minus_cos"] < 1 - HEAD_COS_MIN
+                     and out["desc_1_minus_cos"] < 1 - HEAD_COS_MIN
+                     and out["rel_depth"] < HEAD_REL_DEPTH_MAX
+                     and out["rel_conf"] < HEAD_REL_CONF_MAX)
+    return out
 
 
 def check_small_model():
     """The network through the kernels on the card against the same weights
-    through the plain versions on the CPU, at a small f32 size whose
-    attention heads have Dh = 64."""
+    through the plain versions on the CPU, at a small size whose attention
+    heads have Dh = 64: f32 heads to 1e-3 of each output's scale, then bf16
+    heads (``main_torch.py``'s default) to the acceptance bounds of bf16
+    heads (``head_agreement``), since cuDNN and the CPU round the bf16
+    convolutions at other places."""
     import torch
 
     from mast3r_slam_torch.inference import InferenceEngine
     from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
 
-    cfg = MASt3RConfig.tiny(enc_embed_dim=128, enc_num_heads=2,
-                            dec_embed_dim=128, dec_num_heads=2)
-    torch.manual_seed(1)
-    state = MASt3R(cfg).state_dict()
     hw = (64, 96)
     img = torch.from_numpy(np.random.default_rng(1).uniform(
         -1, 1, (1, hw[0], hw[1], 3)).astype(np.float32))
-    res = {}
-    for dev in ("cpu", "cuda"):
-        model = MASt3R(cfg)
-        model.load_state_dict(state)
-        eng = InferenceEngine(model, hw, device=dev)
-        feat, pos = eng.encode(img.to(dev))
-        out1, out2 = eng.decode_pair(feat, pos, feat, pos)
-        res[dev] = [t.float().cpu() for t in (feat, *out1, *out2)]
     names = ["feat", "X1", "C1", "D1", "Q1", "X2", "C2", "D2", "Q2"]
-    for name, a, b in zip(names, res["cpu"], res["cuda"]):
-        err = (a - b).abs().max().item()
-        tol = 1e-3 * (1.0 + a.abs().max().item())
-        print(f"small model {name}: card vs CPU max abs err {err:.3e} "
-              f"(tol {tol:.1e})")
-        if not err <= tol:
-            raise SystemExit("the network on the card disagrees with the "
-                             "CPU reference")
+    for head_dtype in (torch.float32, torch.bfloat16):
+        cfg = MASt3RConfig.tiny(enc_embed_dim=128, enc_num_heads=2,
+                                dec_embed_dim=128, dec_num_heads=2,
+                                head_dtype=head_dtype)
+        torch.manual_seed(1)
+        state = MASt3R(cfg).state_dict()
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = MASt3R(cfg)
+            model.load_state_dict(state)
+            eng = InferenceEngine(model, hw, device=dev)
+            feat, pos = eng.encode(img.to(dev))
+            out1, out2 = eng.decode_pair(feat, pos, feat, pos)
+            res[dev] = [t.float().cpu() for t in (feat, *out1, *out2)]
+        tag = "f32" if head_dtype == torch.float32 else "bf16"
+        for name, a, b in zip(names, res["cpu"], res["cuda"]):
+            err = (a - b).abs().max().item()
+            tol = 1e-3 * (1.0 + a.abs().max().item())
+            print(f"small model, {tag} heads, {name}: card vs CPU max abs "
+                  f"err {err:.3e}" + (f" (tol {tol:.1e})" if tag == "f32"
+                                      or name == "feat" else ""))
+            if (tag == "f32" or name == "feat") and not err <= tol:
+                raise SystemExit("the network on the card disagrees with "
+                                 "the CPU reference")
+        if tag == "bf16":
+            for view, sl in (("view 1", slice(1, 4)), ("view 2", slice(5, 8))):
+                agree = head_agreement(res["cuda"][sl], res["cpu"][sl])
+                print(f"small model, bf16 heads, {view}: card vs CPU "
+                      f"{json.dumps(agree)} (bounds: 1 - cos < "
+                      f"{1 - HEAD_COS_MIN:.0e}, rel depth < "
+                      f"{HEAD_REL_DEPTH_MAX}, rel conf < {HEAD_REL_CONF_MAX})")
+                if not agree["ok"]:
+                    raise SystemExit("the bf16 heads on the card disagree "
+                                     "with the CPU reference")
+
+
+def check_heads(engine, sd, frames, card):
+    """ViT-L bf16 heads (the production engine) against f32 heads of the
+    same weights on the card (a second engine, ``--fp32-head``), on one
+    frame pair of the clip, to the acceptance bounds of bf16 heads; then
+    decode + heads timed for both head dtypes, and the device time of one
+    traced decode of each."""
+    import torch
+
+    from mast3r_slam_torch.inference import InferenceEngine
+    from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
+
+    model32 = MASt3R(MASt3RConfig.vit_large(head_dtype=torch.float32))
+    model32.load_state_dict(sd)
+    eng32 = InferenceEngine(model32, IMG_HW, device="cuda")
+    norm = [torch.from_numpy(f.astype(np.float32) * (1.0 / 127.5) - 1.0)
+            [None].cuda() for f in frames[:2]]
+    (f1, p1), (f2, p2) = (engine.encode(x) for x in norm)
+    res16 = engine.decode_pair(f1, p1, f2, p2)
+    res32 = eng32.decode_pair(f1, p1, f2, p2)
+    out = {}
+    for view, a, b in zip(("view 1", "view 2"), res16, res32):
+        agree = head_agreement(a[:3], b[:3])
+        print(f"ViT-L bf16 heads against f32 heads, {view}: "
+              f"{json.dumps(agree)} (bounds: 1 - cos < "
+              f"{1 - HEAD_COS_MIN:.0e}, rel depth < {HEAD_REL_DEPTH_MAX}, "
+              f"rel conf < {HEAD_REL_CONF_MAX}) [{card}]")
+        if not agree["ok"]:
+            raise SystemExit("ViT-L bf16 heads outside the acceptance bounds")
+        out[view] = agree
+    for tag, eng in (("bf16", engine), ("f32", eng32)):
+        out[f"decode_and_heads_{tag}_ms"] = time_ms(
+            lambda: eng.decode_pair(f1, p1, f2, p2), reps=5, warmup=1)
+        print(f"decode + heads, {tag} heads: "
+              f"{out[f'decode_and_heads_{tag}_ms']:.3f} ms; one traced "
+              f"decode:")
+        out[f"decode_and_heads_{tag}_device_busy_ms"] = device_busy(
+            lambda: eng.decode_pair(f1, p1, f2, p2), top=8)
+        print(f"  device busy {out[f'decode_and_heads_{tag}_device_busy_ms']:.3f}"
+              f" ms [{card}]")
+    del eng32, model32
+    torch.cuda.empty_cache()
+    return out
 
 
 def build_engine(seed):
     """The ViT-L network with the weights of ``torch.manual_seed(seed)``,
     conditioned so that the clip tracks
-    (``testing.condition_for_tracking``), in an engine on the card."""
+    (``testing.condition_for_tracking``), with bf16 heads as
+    ``main_torch.py`` builds it by default, in an engine on the card.
+    Returns the engine, the configuration and the f32 state dict."""
     import torch
 
     from mast3r_slam_torch.inference import InferenceEngine
     from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
     from mast3r_slam_torch.testing import condition_for_tracking
 
-    mcfg = MASt3RConfig.vit_large()
+    mcfg = MASt3RConfig.vit_large(head_dtype=torch.bfloat16)
     torch.manual_seed(seed)
     model = MASt3R(mcfg)
-    model.load_state_dict(condition_for_tracking(
-        model.state_dict(), mcfg.patch_size, mcfg.local_feat_dim))
-    return InferenceEngine(model, IMG_HW, device="cuda"), mcfg
+    sd = condition_for_tracking(model.state_dict(), mcfg.patch_size,
+                                mcfg.local_feat_dim)
+    model.load_state_dict(sd)
+    return InferenceEngine(model, IMG_HW, device="cuda"), mcfg, sd
 
 
 def drive_frontend(engine, mcfg, cfg, frames, card, label):
@@ -824,12 +962,15 @@ def main(argv=None):
                        card)
     check_small_model()
 
-    engine, mcfg = build_engine(args.seed)
+    engine, mcfg, sd = build_engine(args.seed)
     frames = make_clip(args.seed, N_FRAMES + 1, IMG_HW, CLIP_SHIFT,
                        CLIP_TEXTURE)
+    heads = check_heads(engine, sd, frames, card)
+    del sd
     launches, system = drive_frontend(engine, mcfg, cfg, frames[:N_FRAMES],
                                       card, "production drive")
     stages = breakdown(system, frames[-1], card, "production")
+    stages.update({k: v for k, v in heads.items() if k.endswith("_ms")})
     del system
     _, system_exact = drive_frontend(
         engine, mcfg, cfg_exact, frames[:N_FRAMES_REFERENCE_EXACT], card,

@@ -35,7 +35,7 @@ LATER_SLICES = {
     "retrieval_checkpoint": "retrieval slice (ASMK database)",
     "codebook": "retrieval slice (ASMK database)",
     "viz_port": "viewer slice (live WebGL viewer)",
-    "profile_blocks": "bf16 heads slice (utils/breakdown.py)",
+    "profile_blocks": "per-block breakdown slice (utils/breakdown.py)",
 }
 
 
@@ -63,8 +63,9 @@ def parse_args(argv=None):
                         "(synthetic clips; drives the frontend without "
                         "checkpoint weights)")
     p.add_argument("--fp32-head", action="store_true",
-                   help="float32 heads: what the port runs (bf16 head "
-                        "compute, main.py's default, is a later slice)")
+                   help="run the DPT/catMLP heads in float32 (the exact "
+                        "reference autocast policy) instead of the default "
+                        "bf16-compute/fp32-postprocess fast path")
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--gt", default="", help="TUM-format GT for ATE scoring")
     p.add_argument("--ate-max-diff", type=float, default=0.01,
@@ -111,20 +112,22 @@ def refuse_later_slices(args):
 
 def load_model(args):
     """The network of ``--tiny-model`` (seeded random weights) or the ViT-L
-    one with ``--checkpoint`` loaded strictly."""
+    one with ``--checkpoint`` loaded strictly; bf16 heads unless
+    ``--fp32-head`` (main.py:128-130)."""
     import torch
 
     from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
 
+    head_dtype = torch.float32 if args.fp32_head else torch.bfloat16
     if args.tiny_model:
         torch.manual_seed(0)
-        return MASt3R(MASt3RConfig.tiny())
+        return MASt3R(MASt3RConfig.tiny(head_dtype=head_dtype))
     ckpt = pathlib.Path(args.checkpoint)
     if not ckpt.exists():
         sys.exit(f"checkpoint not found: {ckpt}\n"
                  "Put the MASt3R ViT-L state dict there, or pass "
                  "--tiny-model or --oracle for a run without weights.")
-    model = MASt3R(MASt3RConfig.vit_large())
+    model = MASt3R(MASt3RConfig.vit_large(head_dtype=head_dtype))
     sd = torch.load(ckpt, map_location="cpu", weights_only=True)
     model.load_state_dict(sd.get("model", sd), strict=True)
     return model
@@ -276,9 +279,6 @@ def main(argv=None):
         engine._encode_counter = max(int(args.start_frame), 0)
         K = seq.K if use_calib else None
     else:
-        if not args.fp32_head:
-            print("[note] the heads run in float32; bf16 head compute is a "
-                  "later slice of the port")
         engine = InferenceEngine(
             load_model(args), (h, w),
             downsample=int(config["dataset"].get("img_downsample", 1)),

@@ -31,13 +31,16 @@ class InferenceEngine:
                 f"port runs 1, as every shipped config does)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            # The heads compute in f32 (the reference's autocast policy);
+            # f32 heads (``--fp32-head``, the reference's autocast policy):
             # PyTorch would run their cuDNN convolutions in TF32 by default,
             # which keeps ~3 decimal digits.  Keep both matmul and conv f32.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         if model.cfg.dtype == torch.bfloat16:
-            cast_trunk_params_bf16(model)
+            # identical bits, half the weight bytes; the head weights too
+            # when the heads compute in bf16 (inference.py:55-63)
+            cast_trunk_params_bf16(
+                model, head_bf16=model.cfg.head_dtype == torch.bfloat16)
         self.model = model.to(self.device).eval()
         self.img_hw = tuple(img_hw)
         self.match_cfg = match_cfg or matching.MatchingConfig()

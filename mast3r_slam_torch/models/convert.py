@@ -132,8 +132,11 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_jax(flax_params, patch_size: int = 16) -> dict:
-    """Flax params of the JAX ``MASt3R`` (numpy leaves, with or without the
-    top-level ``params`` key) -> state dict for the port's ``MASt3R``."""
+    """Flax params of the JAX ``MASt3R`` (numpy or JAX leaves, with or
+    without the top-level ``params`` key) -> f32 state dict for the port's
+    ``MASt3R``.  Leaves may be f32 or bf16 (the output of the JAX
+    ``cast_trunk_params_bf16``, heads included): bf16 widens to f32
+    exactly."""
     p = flax_params.get("params", flax_params)
     tree = {
         "patch_embed": {"proj": _patch_conv(p["patch_embed"]["proj"],

@@ -8,9 +8,12 @@ attributes carry the published checkpoint's key names
 ``load_state_dict`` after ``convert.prepare_checkpoint``.
 
 Precision follows the JAX package: the trunk computes in ``cfg.dtype``
-(bf16) with f32 LayerNorm, the heads and postprocess in f32.  Public
-layouts stay NHWC; the convolutions run NCHW inside.  Every attention goes
-through ``ops.attention.flash_attention``.
+(bf16) with f32 LayerNorm; the DPT and catMLP heads compute in
+``cfg.head_dtype`` (f32 by default, the reference's autocast policy; bf16
+where ``main_torch.py`` runs them, as ``main.py`` does) and hand f32 to
+``postprocess``, which always runs in f32.  Public layouts stay NHWC; the
+convolutions run NCHW inside.  Every attention goes through
+``ops.attention.flash_attention``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,10 @@ from .rope import rope_2d
 
 @dataclasses.dataclass(frozen=True)
 class MASt3RConfig:
-    """(mast3r.py:38) The heads always compute in f32, the JAX default."""
+    """(mast3r.py:38) ``dtype`` is the trunk's compute dtype and
+    ``head_dtype`` that of the DPT and catMLP heads: f32 by default, the JAX
+    dataclass default (mast3r.py:65); bf16 is ``main.py``'s default and
+    ``main_torch.py``'s."""
     patch_size: int = 16
     enc_embed_dim: int = 1024
     enc_depth: int = 24
@@ -46,6 +52,7 @@ class MASt3RConfig:
     conf_vmin: float = 1.0
     desc_conf_vmin: float = 0.0
     dtype: torch.dtype = torch.bfloat16  # trunk compute dtype
+    head_dtype: torch.dtype = torch.float32  # DPT + catMLP compute dtype
 
     @property
     def hooks(self):
@@ -224,11 +231,41 @@ class PatchEmbed(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# DPT pyramid head (f32, NCHW inside)
+# DPT pyramid head and catMLP (cfg.head_dtype, NCHW inside)
 # ---------------------------------------------------------------------------
 
+class Conv2d(nn.Conv2d):
+    """Conv2d that computes in ``compute_dtype`` whatever its weights are
+    stored in, like a Flax ``Conv(dtype=...)``: input, weight and bias are
+    cast, and the output stays in that dtype."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(cd)
+        return self._conv_forward(x.to(cd), self.weight.to(cd), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """The k = s transposed conv of ``act_postprocess`` (the JAX ``up``
+    Dense, mast3r.py:334) in ``compute_dtype``."""
+
+    def __init__(self, i, o, s, compute_dtype=torch.float32):
+        super().__init__(i, o, s, stride=s)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        return F.conv_transpose2d(x.to(cd), self.weight.to(cd),
+                                  self.bias.to(cd), stride=self.stride)
+
+
 def bilinear_resize_align_corners(x, out_h, out_w):
-    """Bilinear resize with align_corners=True on NCHW (mast3r.py:250)."""
+    """Bilinear resize with align_corners=True on NCHW (mast3r.py:250), in
+    the input's dtype (JAX casts its weights to ``x.dtype``, :267)."""
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=True)
 
@@ -244,10 +281,12 @@ class Upsample2x(nn.Module):
 class ResidualConvUnit(nn.Module):
     """relu-conv-relu-conv residual (mast3r.py:280)."""
 
-    def __init__(self, features):
+    def __init__(self, features, dtype):
         super().__init__()
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv1 = Conv2d(features, features, 3, padding=1,
+                            compute_dtype=dtype)
+        self.conv2 = Conv2d(features, features, 3, padding=1,
+                            compute_dtype=dtype)
 
     def forward(self, x):
         return x + self.conv2(F.relu(self.conv1(F.relu(x))))
@@ -258,11 +297,11 @@ class FeatureFusionBlock(nn.Module):
     input, so its ``resConfUnit1`` exists only to hold the checkpoint's
     (dead) weights."""
 
-    def __init__(self, features):
+    def __init__(self, features, dtype):
         super().__init__()
-        self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
-        self.out_conv = nn.Conv2d(features, features, 1)
+        self.resConfUnit1 = ResidualConvUnit(features, dtype)
+        self.resConfUnit2 = ResidualConvUnit(features, dtype)
+        self.out_conv = Conv2d(features, features, 1, compute_dtype=dtype)
 
     def forward(self, x, skip=None):
         if skip is not None:
@@ -276,45 +315,49 @@ class Scratch(nn.Module):
     """``dpt.scratch``: the layer{i}_rn convs (also registered as the
     ``layer_rn`` list, as the checkpoint does) and the four refinenets."""
 
-    def __init__(self, layer_dims, features):
+    def __init__(self, layer_dims, features, dtype):
         super().__init__()
         for i, ld in enumerate(layer_dims):
             setattr(self, f"layer{i + 1}_rn",
-                    nn.Conv2d(ld, features, 3, padding=1, bias=False))
+                    Conv2d(ld, features, 3, padding=1, bias=False,
+                           compute_dtype=dtype))
         self.layer_rn = nn.ModuleList(
             [getattr(self, f"layer{i + 1}_rn") for i in range(4)])
         for k in range(1, 5):
-            setattr(self, f"refinenet{k}", FeatureFusionBlock(features))
+            setattr(self, f"refinenet{k}", FeatureFusionBlock(features, dtype))
 
 
 class DPTHead(nn.Module):
     """DPT regression head: (B, H, W, 4) xyz+conf from 4 hooked token layers
-    (mast3r.py:343).  ``act_postprocess`` stages: 1x1 project, then a k=s
-    transposed conv (x4, x2), nothing, or a 3x3 stride-2 conv."""
+    (mast3r.py:343), computed in ``cfg.head_dtype`` and returned in f32
+    (:389).  ``act_postprocess`` stages: 1x1 project, then a k=s transposed
+    conv (x4, x2), nothing, or a 3x3 stride-2 conv."""
 
     def __init__(self, cfg: MASt3RConfig, num_channels: int = 4):
         super().__init__()
         self.cfg = cfg
+        hd = cfg.head_dtype
         E, D = cfg.enc_embed_dim, cfg.dec_embed_dim
         ld = list(cfg.layer_dims)
         tok = [E if h == 0 else D for h in cfg.hooks]
         self.act_postprocess = nn.ModuleList([
-            nn.Sequential(nn.Conv2d(tok[0], ld[0], 1),
-                          nn.ConvTranspose2d(ld[0], ld[0], 4, stride=4)),
-            nn.Sequential(nn.Conv2d(tok[1], ld[1], 1),
-                          nn.ConvTranspose2d(ld[1], ld[1], 2, stride=2)),
-            nn.Sequential(nn.Conv2d(tok[2], ld[2], 1)),
-            nn.Sequential(nn.Conv2d(tok[3], ld[3], 1),
-                          nn.Conv2d(ld[3], ld[3], 3, stride=2, padding=1)),
+            nn.Sequential(Conv2d(tok[0], ld[0], 1, compute_dtype=hd),
+                          ConvTranspose2d(ld[0], ld[0], 4, hd)),
+            nn.Sequential(Conv2d(tok[1], ld[1], 1, compute_dtype=hd),
+                          ConvTranspose2d(ld[1], ld[1], 2, hd)),
+            nn.Sequential(Conv2d(tok[2], ld[2], 1, compute_dtype=hd)),
+            nn.Sequential(Conv2d(tok[3], ld[3], 1, compute_dtype=hd),
+                          Conv2d(ld[3], ld[3], 3, stride=2, padding=1,
+                                 compute_dtype=hd)),
         ])
         Fd = cfg.feature_dim
-        self.scratch = Scratch(ld, Fd)
+        self.scratch = Scratch(ld, Fd, hd)
         self.head = nn.Sequential(
-            nn.Conv2d(Fd, Fd // 2, 3, padding=1),
+            Conv2d(Fd, Fd // 2, 3, padding=1, compute_dtype=hd),
             Upsample2x(),
-            nn.Conv2d(Fd // 2, cfg.last_dim, 3, padding=1),
+            Conv2d(Fd // 2, cfg.last_dim, 3, padding=1, compute_dtype=hd),
             nn.ReLU(),
-            nn.Conv2d(cfg.last_dim, num_channels, 1),
+            Conv2d(cfg.last_dim, num_channels, 1, compute_dtype=hd),
         )
 
     def forward(self, hooked, img_hw):
@@ -323,7 +366,10 @@ class DPTHead(nn.Module):
         nh, nw = H // p, W // p
         feats = []
         for i, tok in enumerate(hooked):
-            x = tok.float().reshape(tok.shape[0], nh, nw, tok.shape[-1])
+            # JAX casts the hooked tokens to f32 and its convs cast them on
+            # to the head dtype (mast3r.py:513); one cast gives the same bits
+            x = tok.to(self.cfg.head_dtype)
+            x = x.reshape(tok.shape[0], nh, nw, tok.shape[-1])
             x = self.act_postprocess[i](x.permute(0, 3, 1, 2))
             feats.append(self.scratch.layer_rn[i](x))
         s = self.scratch
@@ -332,12 +378,13 @@ class DPTHead(nn.Module):
         path = s.refinenet3(path, feats[2])
         path = s.refinenet2(path, feats[1])
         path = s.refinenet1(path, feats[0])
-        return self.head(path).permute(0, 2, 3, 1)
+        return self.head(path).permute(0, 2, 3, 1).float()
 
 
 class DownstreamHead(nn.Module):
     """``downstream_headN``: the DPT head and the catMLP local-feature MLP
-    (the checkpoint's ``head_local_features``)."""
+    (the checkpoint's ``head_local_features``), both in
+    ``cfg.head_dtype``."""
 
     def __init__(self, cfg: MASt3RConfig):
         super().__init__()
@@ -347,17 +394,21 @@ class DownstreamHead(nn.Module):
         p = cfg.patch_size
         self.dpt = DPTHead(cfg)
         self.head_local_features = Mlp(idim, 4 * idim, nch * p * p,
-                                       torch.float32)
+                                       cfg.head_dtype)
 
     def local_features(self, enc_tok, dec_tok, img_hw):
-        """LocalFeaturesHead (mast3r.py:392): MLP on cat(enc, dec) tokens,
-        then pixel shuffle to (B, H, W, nch)."""
+        """LocalFeaturesHead (mast3r.py:392): MLP on cat(enc, dec) tokens in
+        the head dtype, then f32 (:407) and pixel shuffle to (B, H, W,
+        nch)."""
         H, W = img_hw
         p = self.cfg.patch_size
         nh, nw = H // p, W // p
         nch = self.cfg.local_feat_dim + int(self.cfg.two_confs)
+        hd = self.cfg.head_dtype
+        # both tokens are f32 in JAX before the cast (mast3r.py:519); the
+        # cast commutes with the concatenation
         x = self.head_local_features(
-            torch.cat([enc_tok.float(), dec_tok.float()], dim=-1))
+            torch.cat([enc_tok.to(hd), dec_tok.to(hd)], dim=-1)).float()
         B = x.shape[0]
         # torch pixel_shuffle channel layout: c * p^2 + a * p + b
         x = x.reshape(B, nh, nw, nch, p, p).permute(0, 1, 4, 2, 5, 3)
@@ -433,7 +484,8 @@ class MASt3R(nn.Module):
         return out1, out2
 
     def head(self, head_num, tokens, img_hw):
-        """f32 downstream head on the hooked token layers (mast3r.py:519)."""
+        """Downstream head on the hooked token layers (mast3r.py:519), in
+        ``cfg.head_dtype``; the postprocess in f32."""
         hd = self.downstream_head1 if head_num == 1 else self.downstream_head2
         dpt_out = hd.dpt([tokens[h] for h in self.cfg.hooks], img_hw)
         local_out = hd.local_features(tokens[0], tokens[-1], img_hw)
@@ -451,12 +503,18 @@ class MASt3R(nn.Module):
                                     (img1.shape[1], img1.shape[2]))
 
 
-def cast_trunk_params_bf16(model: MASt3R) -> MASt3R:
+def cast_trunk_params_bf16(model: MASt3R, head_bf16: bool = False) -> MASt3R:
     """Store the trunk's weights in bf16, in place (mast3r.py:544).  Those
     modules compute in bf16 anyway, so this is numerically identical and
-    halves the weight bytes; LayerNorm and head weights stay f32."""
-    for m in model.modules():
-        if isinstance(m, (Dense, PatchEmbed)) and \
+    halves the weight bytes; LayerNorm weights stay f32.  With
+    ``head_bf16`` the DPT and catMLP weights are stored in bf16 as well,
+    identical for a model whose heads compute in bf16; without it they stay
+    as they are (mast3r.py:565-575)."""
+    for name, m in model.named_modules():
+        if name.startswith("downstream_head"):
+            if head_bf16 and name in ("downstream_head1", "downstream_head2"):
+                m.to(torch.bfloat16)
+        elif isinstance(m, (Dense, PatchEmbed)) and \
                 m.compute_dtype == torch.bfloat16:
             m.to(torch.bfloat16)
     return model

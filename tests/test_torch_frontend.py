@@ -58,8 +58,8 @@ PROD_FRAC_ATOL = 3e-3
 PROD_SHARED_POSE_ATOL = 2e-4
 
 
-def _run_jax(params, cfg, frames):
-    model = JaxMASt3R(JaxConfig.tiny())
+def _run_jax(params, cfg, frames, head_dtype=jnp.float32):
+    model = JaxMASt3R(JaxConfig.tiny(head_dtype=head_dtype))
     engine = JaxEngine(model, params, (H, W),
                        match_cfg=jmatch.MatchingConfig.from_dict(
                            cfg["matching"]))
@@ -105,11 +105,11 @@ def _run_jax(params, cfg, frames):
     return log, np.asarray(arena.T_WC[:int(arena.n_size)])
 
 
-def _run_port(sd, cfg, frames, matches=None):
+def _run_port(sd, cfg, frames, matches=None, head_dtype=torch.float32):
     """The port's frontend; with ``matches`` (one (idx_f2k, valid) pair per
     tracked frame) the matcher's idx_f2k and validity are replaced by
     those."""
-    model = MASt3R(MASt3RConfig.tiny())
+    model = MASt3R(MASt3RConfig.tiny(head_dtype=head_dtype))
     model.load_state_dict(sd)
     engine = InferenceEngine(model, (H, W),
                              match_cfg=MatchingConfig.from_dict(
@@ -135,12 +135,18 @@ def _run_port(sd, cfg, frames, matches=None):
     return log, system.arena.T_WC[:system.arena.n_size].numpy()
 
 
-def _three_runs(cfg):
+def _clip_inputs():
+    """The conditioned tiny network (port state dict, Flax params) and the
+    clip's frames."""
     torch.manual_seed(0)
     sd = condition_for_tracking(MASt3R(MASt3RConfig.tiny()).state_dict())
     jcfg = JaxConfig.tiny()
     params = convert_state_dict(sd, jcfg.enc_depth, jcfg.dec_depth)
-    frames = make_clip(0, N_FRAMES, (H, W), shift=4)
+    return sd, params, make_clip(0, N_FRAMES, (H, W), shift=4)
+
+
+def _three_runs(cfg):
+    sd, params, frames = _clip_inputs()
     jax_run = _run_jax(params, cfg, frames)
     matches = [s["match"] for s in jax_run[0] if "match" in s]
     return (jax_run, _run_port(sd, cfg, frames),

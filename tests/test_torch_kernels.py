@@ -15,7 +15,9 @@ of the plain host loop, with equal ``ok`` and iteration count; each of the
 within 1e-4 of itself plus 1e-5 of the sum of its terms' magnitudes (a
 block reduction in another order than torch's sum; ``testing.gn_sums_check``),
 and bitwise equality between two launches (a fixed fold order).  The pack
-kernel is a copy: bitwise equal to its plain version, no tolerance.
+kernel is a copy: bitwise equal to its plain version, no tolerance, on
+every production table in the four dtypes, at odd byte offsets and on the
+tilings' edge cases.
 """
 
 import numpy as np
@@ -191,6 +193,91 @@ def test_pack_kernel_matches_plain_bitwise(cuda, dtype, b, h, w, f, k_side, d,
     ref = tpack.pack_rows_plain(flat, offs, row0, n_rows)
     assert got.dtype == dtype and got.shape == ref.shape
     assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+
+
+# the four tables one production match packs at 384x512 (config/base.yaml):
+# (F, offsets, row0, n_rows)
+_W, _HW = 512, 384 * 512
+PRODUCTION_TABLES = {
+    "lm corners": (9, (0, 1, _W, _W + 1), 0, _HW),
+    "refine d=4": (24, tuple(tpack._offsets(7, 4, 12, _W, 2)), -12, _HW + 24),
+    "refine d=2": (24, tuple(tpack._offsets(5, 2, 4, _W, 5)), -4, _HW + 8),
+    "refine d=1": (24, tuple(tpack._offsets(3, 1, 1, _W, 3)), -1, _HW + 2),
+}
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float16, torch.bfloat16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("table", list(PRODUCTION_TABLES))
+def test_pack_kernel_production_tables_bitwise(cuda, table, dtype):
+    F, offs, row0, n_rows = PRODUCTION_TABLES[table]
+    rng = np.random.default_rng(len(offs))
+    flat = torch.from_numpy(rng.integers(-127, 128, (1, _HW, F))).to(cuda,
+                                                                    dtype)
+    got = tpack.pack_rows(flat, offs, row0, n_rows)
+    torch.cuda.synchronize()
+    assert _same_bits(got, tpack.pack_rows_plain(flat, offs, row0, n_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shift", [(torch.int8, 1), (torch.int8, 7),
+                                         (torch.float16, 2),
+                                         (torch.float32, 4)], ids=str)
+def test_pack_kernel_at_odd_byte_offsets(cuda, dtype, shift):
+    """Source and output as contiguous slices of larger buffers, starting
+    ``shift`` bytes past a 16-byte boundary."""
+    b, hw, F = 2, 300 * 7, 9
+    offs, row0, n_rows = tuple(tpack._offsets(5, 2, 4, 7, 5)), -4, hw + 8
+    isz = torch.empty((), dtype=dtype).element_size()
+    rng = np.random.default_rng(shift)
+    src = torch.from_numpy(rng.integers(-127, 128, b * hw * F + 64)) \
+        .to(cuda, dtype)
+    flat = src[shift // isz:shift // isz + b * hw * F].view(b, hw, F)
+    n_out = b * n_rows * len(offs) * F
+    dst = torch.zeros(n_out + 64, dtype=dtype, device=cuda)
+    out = dst[shift // isz:shift // isz + n_out].view(b, n_rows, -1)
+    assert flat.data_ptr() % 16 == shift and out.data_ptr() % 16 == shift
+    before = tpack.pack_rows.launches
+    tpack.pack_rows_into(out, flat, offs, row0)
+    torch.cuda.synchronize()
+    assert tpack.pack_rows.launches == before + 1
+    assert _same_bits(out, tpack.pack_rows_plain(flat, offs, row0, n_rows))
+    # nothing written outside the slice
+    assert not dst[:shift // isz].any() and not dst[shift // isz + n_out:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k64_f32_96_bytes", "ragged_n_rows",
+                                  "wide_rows_in_groups"])
+def test_pack_kernel_edge_tilings(cuda, case):
+    """K = 64 offsets of 96-byte f32 rows; ``n_rows`` that no tile divides
+    (the last tile ragged, rows past the table zero); rows too wide for one
+    output row to fit the staging, so the offsets are cut into groups."""
+    rng = np.random.default_rng(3)
+    if case == "k64_f32_96_bytes":
+        b, hw, F, dtype = 2, 5000, 24, torch.float32
+        offs, row0, n_rows = tuple(range(-300, 340, 10)), -5, 5003
+    elif case == "ragged_n_rows":
+        b, hw, F, dtype = 3, 4099, 9, torch.float16
+        offs, row0, n_rows = (0, 1, 97, 98), 2, 4099 + 113
+    else:
+        b, hw, F, dtype = 1, 50, 5000, torch.float32
+        offs, row0, n_rows = (0, 3, -2, 40), 0, 45
+    plan = tpack.tile_plan(offs, F * torch.empty((), dtype=dtype)
+                           .element_size(), n_rows)
+    assert n_rows % plan.rows or case != "ragged_n_rows"
+    assert (len(plan.group_k) > 2) == (case == "wide_rows_in_groups")
+    flat = torch.from_numpy(rng.integers(-127, 128, (b, hw, F))).to(cuda,
+                                                                    dtype)
+    got = tpack.pack_rows(flat, offs, row0, n_rows)
+    torch.cuda.synchronize()
+    assert _same_bits(got, tpack.pack_rows_plain(flat, offs, row0, n_rows))
 
 
 @pytest.mark.cuda
