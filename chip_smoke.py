@@ -505,8 +505,55 @@ def check_pack(match_cfg, peak_bw, card):
           f"{100 * total['bound_ms'] / total['ms']:.1f}% of bound; gather "
           f"{total['library_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms "
           f"[{card}]")
-    total.update(bound_by="bytes", max_abs_err=0.0, tables=per_table)
+    total.update(bound_by="bytes", max_abs_err=0.0, tables=per_table,
+                 host_us=pack_host_us(match_cfg, card))
     return total
+
+
+def pack_host_us(match_cfg, card, reps=100):
+    """Host time of one ``pack_rows`` call in microseconds (argument checks,
+    the tiling, the output's allocation, the launch): the mean over
+    ``reps`` rounds of the tables of one match, on the host's clock, with
+    the card held busy by a spin kernel so that no call waits for it.  It
+    takes only ``pack_rows``'s public signature, so it also times another
+    tree's package:
+    ``python3 -c "import runpy, sys; sys.path.insert(0, TREE);
+    runpy.run_path('chip_smoke.py')['pack_host_report']()"``."""
+    import torch
+
+    from mast3r_slam_torch.ops.pack import pack_rows
+
+    tables = pack_tables(match_cfg, IMG_HW)
+    dtypes = {"int8": torch.int8, "f16": torch.float16,
+              "bf16": torch.bfloat16}
+    calls = [(torch.zeros(1, n_rows + 2 * row0, fdim, dtype=dtypes[dt],
+                          device="cuda"), offs, row0, n_rows)
+             for _, dt, fdim, offs, row0, n_rows in tables]
+    for args in calls:
+        pack_rows(*args)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for args in calls:
+            pack_rows(*args)
+    us = (time.perf_counter() - t0) / (reps * len(calls)) * 1e6
+    torch.cuda.synchronize()
+    print(f"pack_rows host time: {us:.2f} us a call (mean of {reps} x "
+          f"{len(calls)} calls, the card busy) [{card}]")
+    return us
+
+
+def pack_host_report():
+    """``pack_host_us`` at ``config/base.yaml``'s matcher, for whichever
+    ``mast3r_slam_torch`` is first on the path."""
+    from mast3r_slam_torch import _build
+    from mast3r_slam_torch.ops.matching import MatchingConfig
+    from mast3r_slam_torch.utils.config import load_config
+
+    _build.build(["pack"])
+    pack_host_us(MatchingConfig.from_dict(
+        load_config("config/base.yaml")["matching"]), card_info())
 
 
 def head_agreement(res, ref):
@@ -624,10 +671,11 @@ def check_heads(engine, sd, frames, card):
         print(f"decode + heads, {tag} heads: "
               f"{out[f'decode_and_heads_{tag}_ms']:.3f} ms; one traced "
               f"decode:")
-        out[f"decode_and_heads_{tag}_device_busy_ms"] = device_busy(
-            lambda: eng.decode_pair(f1, p1, f2, p2), top=8)
-        print(f"  device busy {out[f'decode_and_heads_{tag}_device_busy_ms']:.3f}"
-              f" ms [{card}]")
+        busy, kernels = device_busy(lambda: eng.decode_pair(f1, p1, f2, p2),
+                                    top=8)
+        out[f"decode_and_heads_{tag}_device_busy_ms"] = busy
+        out[f"decode_and_heads_{tag}_kernels"] = kernels
+        print(f"  device busy {busy:.3f} ms, {kernels} kernels [{card}]")
     del eng32, model32
     torch.cuda.empty_cache()
     return out
@@ -886,18 +934,20 @@ def breakdown(system, img, card, label, full=True):
         print(f"{label} stage {name}: {ms:.3f} ms{note} [{card}]")
     out["gn_iters"] = iters
     if full:
-        out["device_busy_ms"] = device_busy(step)
+        out["device_busy_ms"], out["device_kernels"] = device_busy(step)
         out["idle_share"] = 1.0 - out["device_busy_ms"] / out["track_step"]
         print(f"{label} track_step: device busy "
               f"{out['device_busy_ms']:.3f} ms of {out['track_step']:.3f} "
-              f"ms, idle share {out['idle_share']:.3f} [{card}]")
+              f"ms, idle share {out['idle_share']:.3f}, "
+              f"{out['device_kernels']} kernels [{card}]")
     return out
 
 
 def device_busy(fn, top=12):
     """Sum of the device kernels' times in one traced call of ``fn``
-    (``torch.profiler``), printing the ``top`` kernels by time.  Kernels of
-    one stream do not overlap, so the sum is the busy time."""
+    (``torch.profiler``), printing the ``top`` kernels by time, and the
+    number of kernels launched.  Kernels of one stream do not overlap, so
+    the sum is the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -914,7 +964,7 @@ def device_busy(fn, top=12):
         raise SystemExit("the profiler saw no device time")
     for ms, n, key in rows[:top]:
         print(f"  kernel {ms:8.3f} ms {n:5d}x {key[:90]}")
-    return sum(r[0] for r in rows)
+    return sum(r[0] for r in rows), sum(r[1] for r in rows)
 
 
 def main(argv=None):
@@ -970,7 +1020,8 @@ def main(argv=None):
     launches, system = drive_frontend(engine, mcfg, cfg, frames[:N_FRAMES],
                                       card, "production drive")
     stages = breakdown(system, frames[-1], card, "production")
-    stages.update({k: v for k, v in heads.items() if k.endswith("_ms")})
+    stages.update({k: v for k, v in heads.items()
+                   if k.endswith(("_ms", "_kernels"))})
     del system
     _, system_exact = drive_frontend(
         engine, mcfg, cfg_exact, frames[:N_FRAMES_REFERENCE_EXACT], card,

@@ -49,9 +49,9 @@
 #include <stdint.h>
 
 #define PACK_MAX_K 64
-#ifndef PACK_THREADS
-#define PACK_THREADS 128       // a block; utils/pack_sweep.py tries others
-#endif
+#define PACK_THREADS 128       // a block
+// the tail of a tile's output (< 16 bytes) is written by threads 32..47
+static_assert(PACK_THREADS >= 48, "pack_tiles_kernel needs 48 threads");
 #define PACK_MAX_SMEM (227 * 1024 - 1024)   // a block's staging
 
 // The tiling of ops/pack.py::tile_plan.  Group g covers the offsets

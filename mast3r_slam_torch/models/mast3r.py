@@ -11,16 +11,21 @@ Precision follows the JAX package: the trunk computes in ``cfg.dtype``
 (bf16) with f32 LayerNorm; the DPT and catMLP heads compute in
 ``cfg.head_dtype`` (f32 by default, the reference's autocast policy; bf16
 where ``main_torch.py`` runs them, as ``main.py`` does) and hand f32 to
-``postprocess``, which always runs in f32.  Public layouts stay NHWC; the
-convolutions run NCHW inside.  Every attention goes through
+``postprocess``, which always runs in f32.  Below f32 every product, bias,
+resize term and GELU rounds where the JAX program rounds (``_product``,
+``bilinear_resize_align_corners``, ``gelu``), so on the same inputs the
+bf16 heads give JAX's bits but for a few elements.  Public layouts stay
+NHWC; the convolutions run NCHW inside.  Every attention goes through
 ``ops.attention.flash_attention``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -81,17 +86,34 @@ class MASt3RConfig:
 # Transformer trunk
 # ---------------------------------------------------------------------------
 
+def _product(op, x, weight, bias, cd, f32_out=False):
+    """``op(x, weight, bias)`` (a linear map or convolution, bias on dim 1
+    of a convolution's output) in ``cd`` as a Flax ``Dense`` or ``Conv``
+    with ``dtype=cd`` computes it.  Below f32 the product is rounded to
+    ``cd`` and the bias added in ``cd``: two roundings, as Flax writes it.
+    With ``f32_out`` the bias is added in f32 and the output is f32, which
+    is how XLA runs a product the program casts to f32 at once (it skips
+    the second rounding).  In f32 the bias goes into the product."""
+    x, w = x.to(cd), weight.to(cd)
+    if bias is None or cd == torch.float32:
+        return op(x, w, None if bias is None else bias.to(cd))
+    y, b = op(x, w, None), bias.to(cd)
+    if op is not F.linear:          # NCHW: a bias per channel
+        b = b.view(-1, 1, 1)
+    return y.float() + b.float() if f32_out else y + b
+
+
 class Dense(nn.Linear):
     """Linear that computes in ``compute_dtype`` whatever its weights are
-    stored in, like a Flax ``Dense(dtype=...)``."""
+    stored in, like a Flax ``Dense(dtype=...)`` (``_product``)."""
 
-    def __init__(self, i, o, compute_dtype=torch.float32):
+    def __init__(self, i, o, compute_dtype=torch.float32, f32_out=False):
         super().__init__(i, o)
-        self.compute_dtype = compute_dtype
+        self.compute_dtype, self.f32_out = compute_dtype, f32_out
 
     def forward(self, x):
-        cd = self.compute_dtype
-        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+        return _product(F.linear, x, self.weight, self.bias,
+                        self.compute_dtype, self.f32_out)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -105,16 +127,34 @@ class LayerNorm(nn.LayerNorm):
                             self.weight.float(), self.bias.float(), self.eps)
 
 
+@functools.lru_cache(maxsize=8)
+def _sqrt_half(dtype):
+    return torch.tensor(0.5 ** 0.5, dtype=dtype).item()
+
+
+def gelu(x):
+    """Exact GELU as ``jax.nn.gelu(approximate=False)`` computes it in
+    ``x``'s dtype.  Below f32: ``0.5 * x * erfc(-x * sqrt_half)`` with
+    ``sqrt_half`` rounded to that dtype, ``erfc`` taken in f32 on the
+    unrounded product and rounded once, then the product rounded (XLA's
+    fusion of it; in bf16 ``F.gelu`` differs in a quarter of the
+    elements).  In f32 ``F.gelu`` computes the same function."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    e = torch.erfc(x.float() * -_sqrt_half(x.dtype)).to(x.dtype)
+    return (0.5 * x) * e
+
+
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> fc2 (mast3r.py:96)."""
 
-    def __init__(self, i, hidden, out, dtype):
+    def __init__(self, i, hidden, out, dtype, f32_out=False):
         super().__init__()
         self.fc1 = Dense(i, hidden, dtype)
-        self.fc2 = Dense(hidden, out, dtype)
+        self.fc2 = Dense(hidden, out, dtype, f32_out)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return self.fc2(gelu(self.fc1(x)))
 
 
 def _attention(q, k, v, dtype):
@@ -220,8 +260,10 @@ class PatchEmbed(nn.Module):
         p = self.patch_size
         nh, nw = H // p, W // p
         cd = self.compute_dtype
-        x = F.conv2d(img.permute(0, 3, 1, 2).to(cd), self.proj.weight.to(cd),
-                     self.proj.bias.to(cd), stride=p)
+        # the bias as the JAX Dense adds it
+        x = _product(lambda x, w, b: F.conv2d(x, w, b, stride=p),
+                     img.permute(0, 3, 1, 2), self.proj.weight,
+                     self.proj.bias, cd)
         x = x.flatten(2).transpose(1, 2)
         yy, xx = torch.meshgrid(torch.arange(nh, device=img.device),
                                 torch.arange(nw, device=img.device),
@@ -237,37 +279,67 @@ class PatchEmbed(nn.Module):
 class Conv2d(nn.Conv2d):
     """Conv2d that computes in ``compute_dtype`` whatever its weights are
     stored in, like a Flax ``Conv(dtype=...)``: input, weight and bias are
-    cast, and the output stays in that dtype."""
+    cast and the output stays in that dtype (``_product``)."""
 
-    def __init__(self, *args, compute_dtype=torch.float32, **kw):
+    def __init__(self, *args, compute_dtype=torch.float32, f32_out=False,
+                 **kw):
         super().__init__(*args, **kw)
-        self.compute_dtype = compute_dtype
+        self.compute_dtype, self.f32_out = compute_dtype, f32_out
 
     def forward(self, x):
-        cd = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(cd)
-        return self._conv_forward(x.to(cd), self.weight.to(cd), bias)
+        return _product(self._conv_forward, x, self.weight, self.bias,
+                        self.compute_dtype, self.f32_out)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """The k = s transposed conv of ``act_postprocess`` (the JAX ``up``
-    Dense, mast3r.py:334) in ``compute_dtype``."""
+    Dense, mast3r.py:334) in ``compute_dtype`` (``_product``)."""
 
     def __init__(self, i, o, s, compute_dtype=torch.float32):
         super().__init__(i, o, s, stride=s)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        cd = self.compute_dtype
-        return F.conv_transpose2d(x.to(cd), self.weight.to(cd),
-                                  self.bias.to(cd), stride=self.stride)
+        return _product(
+            lambda x, w, b: F.conv_transpose2d(x, w, b, stride=self.stride),
+            x, self.weight, self.bias, self.compute_dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_taps(n_in, n_out, dtype, device):
+    """Source rows lo, hi and their weights 1 - frac, frac for each output
+    row of an align-corners resize: JAX's coordinates in f32, frac cast to
+    ``dtype`` and 1 - frac taken in it (mast3r.py:262-267, 277)."""
+    coords = (np.arange(n_out) * (n_in - 1)).astype(np.float32) / \
+        np.float32(n_out - 1)
+    lo = np.floor(coords).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    frac = torch.from_numpy(coords - lo.astype(np.float32)).to(dtype)
+    return tuple(t.to(device) for t in (torch.from_numpy(lo),
+                                        torch.from_numpy(hi), 1 - frac, frac))
 
 
 def bilinear_resize_align_corners(x, out_h, out_w):
-    """Bilinear resize with align_corners=True on NCHW (mast3r.py:250), in
-    the input's dtype (JAX casts its weights to ``x.dtype``, :267)."""
-    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
-                         align_corners=True)
+    """Bilinear resize with align_corners=True on NCHW, as the JAX package
+    writes it (mast3r.py:250).  Below f32: one axis after the other, rows
+    then columns, ``a * (1 - frac) + b * frac`` with every term in ``x``'s
+    dtype, rounding each term where ``F.interpolate`` rounds once.  In f32
+    ``F.interpolate`` computes the same function."""
+    if x.dtype == torch.float32:
+        return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                             align_corners=True)
+    for dim, n_out in ((2, out_h), (3, out_w)):
+        n_in = x.shape[dim]
+        if n_out == n_in:
+            continue
+        if n_in == 1:
+            x = x.expand(*x.shape[:dim], n_out, *x.shape[dim + 1:])
+            continue
+        lo, hi, w_lo, w_hi = _resize_taps(n_in, n_out, x.dtype, x.device)
+        if dim == 2:
+            w_lo, w_hi = w_lo.view(n_out, 1), w_hi.view(n_out, 1)
+        x = x.index_select(dim, lo) * w_lo + x.index_select(dim, hi) * w_hi
+    return x
 
 
 class Upsample2x(nn.Module):
@@ -357,7 +429,8 @@ class DPTHead(nn.Module):
             Upsample2x(),
             Conv2d(Fd // 2, cfg.last_dim, 3, padding=1, compute_dtype=hd),
             nn.ReLU(),
-            Conv2d(cfg.last_dim, num_channels, 1, compute_dtype=hd),
+            Conv2d(cfg.last_dim, num_channels, 1, compute_dtype=hd,
+                   f32_out=True),
         )
 
     def forward(self, hooked, img_hw):
@@ -394,7 +467,7 @@ class DownstreamHead(nn.Module):
         p = cfg.patch_size
         self.dpt = DPTHead(cfg)
         self.head_local_features = Mlp(idim, 4 * idim, nch * p * p,
-                                       cfg.head_dtype)
+                                       cfg.head_dtype, f32_out=True)
 
     def local_features(self, enc_tok, dec_tok, img_hw):
         """LocalFeaturesHead (mast3r.py:392): MLP on cat(enc, dec) tokens in

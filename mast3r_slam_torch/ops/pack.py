@@ -32,9 +32,9 @@ MAX_K = 64          # PACK_MAX_K of csrc/pack.cu
 _DTYPES = (torch.int8, torch.float16, torch.bfloat16, torch.float32)
 # the kernel's tiling: output bytes a tile aims at, the staging a block aims
 # at, and the most a block may stage (PACK_MAX_SMEM of csrc/pack.cu)
-TILE_OUT_BYTES = 16384
-TILE_SMEM_BYTES = 24576
-MAX_SMEM_BYTES = 227 * 1024 - 1024
+_TILE_OUT_BYTES = 16384
+_TILE_SMEM_BYTES = 24576
+_MAX_SMEM_BYTES = 227 * 1024 - 1024
 
 
 def _offsets(k_side: int, d: int, rd: int, w: int, u_count: int):
@@ -87,7 +87,9 @@ class TilePlan:
     group_span[g+1])``.  Span s is the source rows ``r0 + row0 +
     span_lo[s] + [0, span_rows[s])`` of a tile starting at output row r0,
     staged at byte ``span_smem[s]``; offset k reads span ``k_span[k]`` from
-    row ``k_delta[k]`` on.  ``smem`` is the staging a block takes."""
+    row ``k_delta[k]`` on.  ``smem`` is the staging a block takes;
+    ``c_args`` the plan as ``csrc/pack.cu::pack_rows`` takes it, its ctypes
+    arrays built once."""
     rows: int
     group_k: tuple
     group_span: tuple
@@ -97,6 +99,7 @@ class TilePlan:
     k_span: tuple
     k_delta: tuple
     smem: int
+    c_args: tuple = dataclasses.field(compare=False, repr=False)
 
 
 def _round16(n):
@@ -124,19 +127,19 @@ def _staging(spans, rows, row_bytes):
 def tile_plan(offsets: tuple, row_bytes: int, n_rows: int) -> TilePlan:
     """The kernel's tiling for K = len(offsets) offsets of ``row_bytes``-byte
     rows.  The tile is the most rows (a multiple of the count that makes its
-    output a multiple of 16 bytes, up to ``TILE_OUT_BYTES`` of output) whose
-    spans fit ``TILE_SMEM_BYTES``; when not even one output row fits, R is 1
-    and the offsets are cut into consecutive groups that do (a group may
-    take up to ``MAX_SMEM_BYTES``)."""
+    output a multiple of 16 bytes, up to ``_TILE_OUT_BYTES`` of output)
+    whose spans fit ``_TILE_SMEM_BYTES``; when not even one output row fits,
+    R is 1 and the offsets are cut into consecutive groups that do (a group
+    may take up to ``_MAX_SMEM_BYTES``)."""
     K = len(offsets)
     out_row = K * row_bytes
     step = 16 // math.gcd(out_row, 16)
-    top = max(step, TILE_OUT_BYTES // out_row // step * step)
+    top = max(step, _TILE_OUT_BYTES // out_row // step * step)
     top = min(top, -(-max(n_rows, 1) // step) * step)
     groups = None
     for rows in [*range(top, 0, -step), 1]:
         spans = _spans(offsets, range(K), rows)
-        if _staging(spans, rows, row_bytes) <= TILE_SMEM_BYTES:
+        if _staging(spans, rows, row_bytes) <= _TILE_SMEM_BYTES:
             groups = [(0, K, spans)]
             break
     if groups is None:
@@ -144,10 +147,10 @@ def tile_plan(offsets: tuple, row_bytes: int, n_rows: int) -> TilePlan:
         while k0 < K:
             k1 = k0 + 1
             while k1 < K and _staging(_spans(offsets, range(k0, k1 + 1), 1),
-                                      1, row_bytes) <= TILE_SMEM_BYTES:
+                                      1, row_bytes) <= _TILE_SMEM_BYTES:
                 k1 += 1
             spans = _spans(offsets, range(k0, k1), 1)
-            if _staging(spans, 1, row_bytes) > MAX_SMEM_BYTES:
+            if _staging(spans, 1, row_bytes) > _MAX_SMEM_BYTES:
                 raise ValueError(f"pack_rows kernel: a {row_bytes}-byte row "
                                  f"does not fit in shared memory")
             groups.append((k0, k1, spans))
@@ -170,24 +173,30 @@ def tile_plan(offsets: tuple, row_bytes: int, n_rows: int) -> TilePlan:
             k_span[k], k_delta[k] = first + s, offsets[k] - los[s]
         group_k.append(k1)
         group_span.append(len(span_lo))
+
+    def arr(ctype, values):
+        return (ctype * len(values))(*values)
+
+    i32 = ctypes.c_int
+    c_args = (rows, len(group_k) - 1, arr(i32, group_k), arr(i32, group_span),
+              len(span_lo), arr(ctypes.c_longlong, span_lo),
+              arr(i32, span_rows), arr(i32, span_smem), arr(i32, k_span),
+              arr(i32, k_delta), smem)
     return TilePlan(rows, tuple(group_k), tuple(group_span), tuple(span_lo),
                     tuple(span_rows), tuple(span_smem), tuple(k_span),
-                    tuple(k_delta), smem)
+                    tuple(k_delta), smem, c_args)
 
 
-def _bind(lib):
-    """Declare the C signature of ``pack_rows`` in a loaded library."""
-    fn = lib.pack_rows
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """``pack_rows`` of the built library, its C signature declared."""
+    fn = _build.load("pack").pack_rows
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     p32 = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [ptr, ptr, i64, i64, i64, i64, i64, i32, i32, i32, p32, p32,
                    i32, ctypes.POINTER(i64), p32, p32, p32, p32, i32, ptr]
     fn.restype = ctypes.c_int
-    return lib
-
-
-def _lib():
-    return _bind(_build.load("pack"))
+    return fn
 
 
 def pack_rows(flat, offsets, row0: int = 0, n_rows: int | None = None):
@@ -231,19 +240,10 @@ def pack_rows_into(out, flat, offsets, row0: int = 0):
     n_rows = out.shape[1]
     row_bytes = F * flat.element_size()
     plan = tile_plan(offsets, row_bytes, n_rows)
-
-    def arr(ctype, values):
-        return (ctype * len(values))(*values)
-
-    i32 = ctypes.c_int
     with torch.cuda.device(flat.device):
-        err = _lib().pack_rows(
+        err = _kernel()(
             flat.data_ptr(), out.data_ptr(), b, hw, row_bytes, n_rows, row0,
-            K, plan.rows, len(plan.group_k) - 1, arr(i32, plan.group_k),
-            arr(i32, plan.group_span), len(plan.span_lo),
-            arr(ctypes.c_longlong, plan.span_lo), arr(i32, plan.span_rows),
-            arr(i32, plan.span_smem), arr(i32, plan.k_span),
-            arr(i32, plan.k_delta), plan.smem,
+            K, *plan.c_args,
             torch.cuda.current_stream(flat.device).cuda_stream)
     _build.check(err, "pack_rows")
     pack_rows.launches += 1

@@ -185,9 +185,9 @@ def test_tile_plan_covers_every_window_and_reproduces_plain(name):
             assert plan.span_smem[s] % 16 == 0 and plan.span_smem[s] >= end
             end = plan.span_smem[s] + tpack._round16(
                 plan.span_rows[s] * row_bytes) + 16
-        assert end <= plan.smem <= tpack.MAX_SMEM_BYTES
+        assert end <= plan.smem <= tpack._MAX_SMEM_BYTES
     if len(plan.group_k) == 2:
-        assert plan.smem <= tpack.TILE_SMEM_BYTES
+        assert plan.smem <= tpack._TILE_SMEM_BYTES
     rng = np.random.default_rng(len(name))
     flat = torch.from_numpy(rng.integers(-127, 128, (2, H * W, F))).to(dtype)
     got = _assemble_plain(flat, offsets, row0, n_rows, plan)
