@@ -14,14 +14,21 @@ call.  Then it drives the port as a user would:
 * ``main_torch.run`` (the frame loop of ``main_torch.py``) at full ViT-L
   width on 384x512 frames with seeded random weights, bf16 heads (as
   ``main_torch.py`` runs them by default) and ``config/base.yaml``
-  unmodified (the production matcher), counting that every attention, GN
-  solve and table pack of that drive went through the kernels, and writing
-  and reading back the trajectory;
-* a short drive at the same width with ``reference_exact: true`` (the
-  full-resolution matcher and the per-component Huber solve);
+  unmodified (the production matcher; the backend inline after each
+  keyframe, its consecutive edge pose-warped without a decode), counting
+  that every attention, GN solve and table pack of that drive went through
+  the kernels, and writing and reading back the trajectory;
+* the last backend round's BA inputs solved again on the CPU and held
+  against the card's solve;
+* the same drive with ``reference_exact: true`` (the full-resolution
+  matcher, the per-component Huber solve, consecutive edges through the
+  symmetric decode + match);
 * the oracle harness (a rendered 16-frame clip with known poses),
-  uncalibrated and calibrated, scored by ATE;
-* a stage breakdown of one tracking step.
+  uncalibrated and calibrated, with the backend, scored by ATE and held
+  against the same drive on the CPU;
+* a stage breakdown of one tracking step and of the backend: a round's
+  time, BA iterations, kernels per BA iteration, and the frame time of a
+  keyframe against a plain tracked frame.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 Exits non-zero, printing no result, when any phase fails or no CUDA card is
@@ -56,9 +63,19 @@ IMG_HW = (384, 512)
 # the drive's clip: frames, pixels between consecutive frames, and the share
 # of blurred noise in its image (testing.make_clip)
 N_FRAMES, CLIP_SHIFT, CLIP_TEXTURE = 6, 32, 0.5
-N_FRAMES_REFERENCE_EXACT = 3
-# ATE limits of the oracle drives: those of tests/test_pipeline.py
+N_FRAMES_REFERENCE_EXACT = 6
+# ATE limits of the oracle drives: those of tests/test_pipeline.py; and the
+# card's oracle ATE against the same drive on the CPU
 ORACLE_ATE_LIMIT = {"uncalibrated": 0.05, "calibrated": 0.1}
+ORACLE_ATE_CPU_ATOL = 1e-5
+# the card's BA against the CPU's on the same inputs: H and g of one
+# iteration (relative to their largest entry; read 4.5e-7 and 2.8e-7 on an
+# H100), and the whole solve's poses (read 1.8e-4; the drive's round does
+# not converge)
+BA_HG_RTOL, BA_POSE_ATOL = 4e-6, 1.5e-3
+# the factor graph's edge arrays, in the order of FactorGraph._stores()
+STORE = ("idx_ii2jj", "idx_jj2ii", "valid_match_j", "valid_match_i",
+         "Q_ii2jj", "Q_jj2ii")
 # acceptance bounds of bf16 heads against a reference (tests/test_model.py)
 HEAD_COS_MIN, HEAD_REL_DEPTH_MAX, HEAD_REL_CONF_MAX = 0.999, 0.02, 0.05
 
@@ -703,11 +720,16 @@ def build_engine(seed):
 
 
 def drive_frontend(engine, mcfg, cfg, frames, card, label):
-    """``main_torch.run`` (dataset -> ``SLAMSystem.process_frame`` ->
-    summary) over an in-memory clip with the configuration ``cfg``, then the
-    trajectory written with ``evaluate.save_traj`` and read back.  Every
-    kernel's count is set to 0 just before the loop and read just after;
-    the counts must be what the configuration implies."""
+    """``main_torch.run`` (dataset -> ``SLAMSystem.process_frame`` with its
+    inline backend -> summary) over an in-memory clip with the
+    configuration ``cfg``, then the trajectory written with
+    ``evaluate.save_traj`` and read back.  Every kernel's count is set to 0
+    just before the loop and read just after; the counts must be what the
+    configuration and the drive's keyframes imply.  The drive must make two
+    keyframes, a backend round and an edge.  Each frame's
+    ``process_frame`` and each backend round are timed on the host clock
+    (the card synchronised around them), and the last round's BA inputs
+    are kept for ``check_ba``."""
     import torch
 
     import main_torch
@@ -723,6 +745,44 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
     engine.match_cfg = MatchingConfig.from_dict(cfg["matching"])
     system = SLAMSystem(cfg, engine, IMG_HW, buffer=len(frames),
                         device="cuda")
+    timing = {"frames": [], "rounds": []}
+    record = {}
+    process_frame, process_task = system.process_frame, system._process_task
+    solve_poses = system.graph.solve_poses
+
+    def timed(fn, out):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a)
+            torch.cuda.synchronize()
+            out.append(((time.perf_counter() - t0) * 1e3, res))
+            return res
+        return call
+
+    def keep_inputs(arena, residual):
+        g = system.graph
+        record.update(
+            residual=residual, n_edges=g.n_edges, ii=g.ii.copy(),
+            jj=g.jj.copy(), n_size=arena.n_size, K=g.K,
+            arena={k: getattr(arena, k).clone() for k in
+                   ("X", "C", "N", "N_updates", "T_WC")},
+            store={k: t[:g.n_edges].clone()
+                   for k, t in zip(STORE, g._stores())})
+        res = solve_poses(arena, residual)
+        record["result"] = res
+        return res
+
+    add_factors = system.graph.add_factors
+
+    def keep_args(*a, **kw):
+        record["add_factors"] = (a, kw)
+        return add_factors(*a, **kw)
+
+    system.process_frame = timed(process_frame, timing["frames"])
+    system._process_task = timed(process_task, timing["rounds"])
+    system.graph.solve_poses = keep_inputs
+    system.graph.add_factors = keep_args
     dataset = ClipDataset(frames)
     args = main_torch.parse_args(["--no-viz"])
     torch.cuda.synchronize()
@@ -737,30 +797,48 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
                 "gn_accumulate": gn.gn_sums.launches,
                 "gn_solve": gn.gn_solve.launches,
                 "pack_rows": pack_rows.launches}
+    system.process_frame, system._process_task = process_frame, process_task
+    system.graph.solve_poses = solve_poses
+    system.graph.add_factors = add_factors
 
     stats = summary["stats"]
     n = summary["frames"]
+    n_edges = system.graph.n_edges
     print(f"{label}: {n} frames in {wall_ms:.1f} ms, stats {stats}, mean GN "
-          f"iterations {summary['mean_gn_iters']:.2f} [{card}]")
+          f"iterations {summary['mean_gn_iters']:.2f}, {n_edges} edges, "
+          f"{system.ba_iters_total} BA iterations in "
+          f"{summary['ba_rounds']} rounds [{card}]")
     if summary["lost_at"] is not None or n != len(frames) or \
             stats["skipped"]:
         raise SystemExit(f"{label}: the drive lost tracking (random "
-                         f"weights); relocalization is a later slice")
+                         f"weights)")
     tracked = stats["tracked"]
     if tracked != n - 1:
         raise SystemExit(f"{label}: {tracked} tracked frames of {n - 1}")
+    if stats["keyframes"] < 2 or stats["ba_rounds"] < 1 or n_edges < 1:
+        raise SystemExit(f"{label}: the drive made {stats['keyframes']} "
+                         f"keyframes, {stats['ba_rounds']} BA rounds and "
+                         f"{n_edges} edges: the backend was not exercised")
 
     # every frame encodes once and decodes once (INIT: mono decode;
-    # TRACKING: asymmetric decode), each decode with 4 attentions a block
-    expect_attn = (mcfg.enc_depth + 4 * mcfg.dec_depth) * n
+    # TRACKING: asymmetric decode), each decode with 4 attentions a block;
+    # a symmetric edge decodes both directions in one B=2 decode and
+    # matches them in one batched match, a pose-warped edge only matches
+    # (on the edge subgrid, with as many tables as a full match)
+    reuse = bool(cfg["local_opt"].get("reuse_track_matches", True))
+    sym_edges = 0 if reuse else n_edges
+    expect_attn = (mcfg.enc_depth + 4 * mcfg.dec_depth) * n \
+        + 4 * mcfg.dec_depth * sym_edges
     per_match = len(pack_tables(engine.match_cfg, IMG_HW))
-    expect_pack = per_match * tracked
+    expect_pack = per_match * (tracked + n_edges)
     joint = TrackerConfig.from_config(cfg).joint_ray_huber
     print(f"{label}: attention launches {launches['attention']} (expected "
           f"{expect_attn} = ({mcfg.enc_depth} + {4 * mcfg.dec_depth}) x {n} "
-          f"frames); pack launches {launches['pack_rows']} (expected "
-          f"{expect_pack} = {per_match} tables x {tracked} tracked frames); "
-          f"gn_solve launches {launches['gn_solve']} "
+          f"frames + {4 * mcfg.dec_depth} x {sym_edges} symmetric edges); "
+          f"pack launches {launches['pack_rows']} (expected {expect_pack} = "
+          f"{per_match} tables x ({tracked} tracked frames + {n_edges} "
+          f"{'pose-warped' if reuse else 'symmetric'} edges)); gn_solve "
+          f"launches {launches['gn_solve']} "
           f"({'one per tracked frame' if joint else 'none: per-component Huber'}"
           f", {system.tracker.gn_iters_total} GN iterations in all); "
           f"gn_accumulate launches {launches['gn_accumulate']}")
@@ -781,12 +859,16 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
         "keyframe confidences": system.arena.C[:n_kf],
         "keyframe poses": system.arena.T_WC[:n_kf],
         "last pose": system.last_T_WC,
+        "edge weights": system.graph.Q_ii2jj[:n_edges],
     }
     for name, t in tensors.items():
         if not bool(torch.isfinite(t).all()):
             raise SystemExit(f"non-finite {name}")
     if tuple(system.arena.X.shape[1:]) != (IMG_HW[0] * IMG_HW[1], 3):
         raise SystemExit("unexpected pointmap shape")
+    if system.graph.idx_ii2jj.device.type != "cuda" or \
+            system.arena.T_WC.device.type != "cuda":
+        raise SystemExit("the edge store or the arena is not on the card")
     with tempfile.TemporaryDirectory() as tmp:
         evaluate.save_traj(tmp, "traj.txt", dataset.timestamps, system.arena)
         ts, pos, quat = evaluate.load_tum_trajectory(f"{tmp}/traj.txt")
@@ -796,16 +878,184 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
                                           atol=1e-5):
         raise SystemExit(f"{label}: the trajectory file does not hold the "
                          f"keyframe poses")
+    g = system.graph
+
+    def mb(ts):
+        return sum(t.numel() * t.element_size() for t in ts) / 1e6
+
+    store_mb, cache_mb = mb(g._stores()), mb(g._pres())
     print(f"{label}: {n_kf} keyframes, all outputs finite, trajectory "
-          f"written and read back")
-    return launches, system
+          f"written and read back; edge store {store_mb:.1f} MB for "
+          f"{g.max_edges} edges (int32 indices, bool masks, f32 weights), "
+          f"pregather cache {cache_mb:.1f} MB")
+
+    # frame times: a frame that made a keyframe (and ran its backend round)
+    # against a plain tracked frame; the first frame (INIT) is left out
+    kf_ms = [ms for (ms, info) in timing["frames"][1:] if info["new_kf"]]
+    plain_ms = [ms for (ms, info) in timing["frames"][1:]
+                if not info["new_kf"]]
+    rounds_ms = [ms for ms, _ in timing["rounds"]]
+    print(f"{label}: process_frame ms, keyframe frames "
+          f"{[round(x, 3) for x in kf_ms]}, plain tracked frames "
+          f"{[round(x, 3) for x in plain_ms]}; backend rounds (add_factors + "
+          f"solve_poses) {[round(x, 3) for x in rounds_ms]} [{card}]")
+    timings = {"keyframe_frame_ms": kf_ms, "tracked_frame_ms": plain_ms,
+               "backend_round_ms": rounds_ms[1:],   # round 0: INIT, no edge
+               "ba_iterations": system.ba_iters_total,
+               "ba_rounds": stats["ba_rounds"], "edges": n_edges,
+               "edge_store_mb": store_mb, "pregather_cache_mb": cache_mb}
+    return launches, system, record, timings
+
+
+def check_ba(record, cfg, card):
+    """The last backend round's BA inputs (arena, edge store) copied to the
+    CPU and solved there by the same port code, held against the card's
+    solve of that round: H and g of one GN iteration within ``BA_HG_RTOL``
+    of their largest entry, the same iteration count and ok, the poses
+    within ``BA_POSE_ATOL``; the card solving the copied inputs again
+    gives the drive's result within the same limit."""
+    import torch
+
+    from mast3r_slam_torch import global_opt
+    from mast3r_slam_torch.frame import make_arena
+    from mast3r_slam_torch.ops import ba
+
+    residual = record["residual"]
+    calib = residual == "calib"
+    img_wh = IMG_HW[::-1]
+    results = {}
+    for dev in ("cuda", "cpu"):
+        A = record["arena"]
+        arena = make_arena(A["X"].shape[0], *IMG_HW, 1, 1, dev)
+        for k, t in A.items():
+            getattr(arena, k).copy_(t.to(dev))
+        arena.n_size = record["n_size"]
+        g = global_opt.FactorGraph(type("Engine", (), {"device": dev})(),
+                                   IMG_HW[0] * IMG_HW[1], cfg, K=record["K"],
+                                   store_device=dev)
+        n = record["n_edges"]
+        if n > g.max_edges:
+            g._grow(n)
+        for k, t in record["store"].items():
+            getattr(g, k)[:n] = t.to(dev)
+        g.ii[:n], g.jj[:n], g.n_edges = record["ii"][:n], record["jj"][:n], n
+        upd, Twc, stats = g.solve_poses(arena, residual)
+        # one GN iteration's H and g at the round's starting poses
+        unique = g.get_unique_kf_idx()
+        remap = {int(k): c for c, k in enumerate(unique)}
+        E_b = global_opt._next_bucket(n, 4)
+        ii2 = np.zeros(2 * E_b, np.int64)
+        jj2 = np.zeros(2 * E_b, np.int64)
+        ev = np.zeros(2 * E_b, bool)
+        for e in range(n):
+            a, b = remap[int(g.ii[e])], remap[int(g.jj[e])]
+            ii2[e], jj2[e], ii2[E_b + e], jj2[E_b + e] = a, b, b, a
+            ev[e] = ev[E_b + e] = True
+        ii2, jj2, ev = (torch.from_numpy(x).to(dev) for x in (ii2, jj2, ev))
+        T0, Xs, Cs, idx2, vm2, Q2 = global_opt._prep_system(
+            arena.X, arena.C, arena.N, arena.T_WC, *g._stores(),
+            torch.from_numpy(unique.astype(np.int64)).to(dev), g._K(), E_b,
+            img_wh, calib)
+        pre = ba._pregather_edges(Xs, Cs, ii2, jj2, idx2, vm2, Q2, ev, g.cfg,
+                                  min(g.cfg.chunk_points, idx2.shape[1]),
+                                  img_wh)
+        Hs, gs = ba._accumulate_pre(residual, T0, ii2, jj2, pre, g._K(),
+                                    img_wh, g.cfg)
+        results[dev] = (upd, Twc.cpu(), stats, Hs.cpu(), gs.cpu())
+    (upd_c, T_c, st_c, H_c, g_c), (upd_h, T_h, st_h, H_h, g_h) = \
+        results["cuda"], results["cpu"]
+    _, T_drive, st_drive = record["result"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    h_err, g_err = rel(H_c, H_h), rel(g_c, g_h)
+    pose_err = float((T_c - T_h).abs().max())
+    drive_err = float((T_drive.cpu() - T_c).abs().max())
+    print(f"BA check (last round, {record['n_edges']} edges, "
+          f"{len(unique)} keyframes): card against CPU, one iteration's H "
+          f"{h_err:.3g} and g {g_err:.3g} relative (limit {BA_HG_RTOL}); "
+          f"iterations {st_c[0]} / {st_h[0]} (the drive {st_drive[0]}), "
+          f"last |dx| {st_c[1]:.4g} / {st_h[1]:.4g}, ok {st_c[2]} / "
+          f"{st_h[2]}; poses {pose_err:.3g} apart (limit {BA_POSE_ATOL}); "
+          f"the drive's solve against the card's again {drive_err:.3g} "
+          f"[{card}]")
+    if not (h_err <= BA_HG_RTOL and g_err <= BA_HG_RTOL
+            and st_c[0] == st_h[0] == st_drive[0] and st_c[2] == st_h[2]
+            and pose_err <= BA_POSE_ATOL and drive_err <= BA_POSE_ATOL
+            and np.array_equal(upd_c, upd_h)):
+        raise SystemExit("the card's BA disagrees with the CPU's")
+    return {"ba_check_H_rel": h_err, "ba_check_g_rel": g_err,
+            "ba_check_pose_abs": pose_err, "ba_check_drive_abs": drive_err,
+            "ba_check_last_dx": st_c[1]}
+
+
+def backend_breakdown(system, record, card):
+    """The last backend round of the production drive again, warm: its
+    ``add_factors`` (the pose-warped edge, its weights and the store
+    write) on a fresh factor graph with the round's arguments, then
+    ``solve_poses`` (the cache refresh and the BA) on the drive's arena,
+    timed on the host clock and traced (device busy, kernels); and the
+    drive's own graph solved again, traced, for the kernels per BA
+    iteration."""
+    import torch
+
+    from mast3r_slam_torch.global_opt import FactorGraph
+
+    rtype = "calib" if system.use_calib else "ray"
+    hw = IMG_HW[0] * IMG_HW[1]
+    args, kw = record["add_factors"]
+
+    def graph():
+        return FactorGraph(system.engine, hw, system.cfg, K=system.K,
+                           store_device="cuda")
+
+    def backend_round(g):
+        g.add_factors(*args, **kw)
+        return g.solve_poses(system.arena, rtype)
+
+    backend_round(graph())                 # warm-up
+    g = graph()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters = backend_round(g)[2][0]
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    g = graph()
+    round_busy, round_kernels = device_busy(lambda: backend_round(g), top=6)
+    del g
+    sg = system.graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg.solve_poses(system.arena, rtype)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    busy, kernels = device_busy(lambda: sg.solve_poses(system.arena, rtype),
+                                top=8)
+    per_iter = kernels / max(iters, 1)
+    print(f"backend round (warm): {round_ms:.3f} ms on the clock "
+          f"(add_factors + solve_poses, {iters} BA iterations), device busy "
+          f"{round_busy:.3f} ms, idle share {1.0 - round_busy / round_ms:.3f},"
+          f" {round_kernels} kernels; its solve alone {solve_ms:.3f} ms, "
+          f"device busy {busy:.3f} ms, {kernels} kernels, {per_iter:.1f} per "
+          f"BA iteration [{card}]")
+    torch.cuda.empty_cache()
+    return {"backend_round_warm_ms": round_ms,
+            "backend_round_device_busy_ms": round_busy,
+            "backend_round_kernels": round_kernels,
+            "backend_round_idle_share": 1.0 - round_busy / round_ms,
+            "ba_solve_ms": solve_ms, "ba_solve_iterations": iters,
+            "ba_solve_device_busy_ms": busy, "ba_solve_kernels": kernels,
+            "ba_kernels_per_iteration": per_iter,
+            "ba_solve_idle_share": 1.0 - busy / solve_ms}
 
 
 def drive_oracle(card):
     """The oracle harness on the card: the 16-frame 48x64 clip of
     ``tests/test_pipeline.py`` rendered with known poses, ``OracleEngine``
-    in place of the network, the frontend uncalibrated and calibrated, and
-    the trajectory scored by ATE against the ground truth."""
+    in place of the network, the whole system (backend inline)
+    uncalibrated and calibrated, the trajectory scored by ATE against the
+    ground truth and against the same drive on the CPU."""
     import torch
 
     from mast3r_slam_torch import evaluate
@@ -818,29 +1068,43 @@ def drive_oracle(card):
     out = {}
     for mode, path in (("uncalibrated", "config/eval_no_calib.yaml"),
                        ("calibrated", "config/eval_calib.yaml")):
-        cfg = load_config(path)
-        cfg["dataset"]["img_size"] = 64
-        engine = OracleEngine(seq, device="cuda")
-        system = SLAMSystem(cfg, engine, (seq.h, seq.w),
-                            K=seq.K if cfg["use_calib"] else None, buffer=32,
-                            device="cuda")
-        gn.gn_solve.launches = 0
-        for i in range(len(seq)):
-            system.process_frame(i, seq.images[i])
-        system.terminate()
-        torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            evaluate.save_traj(tmp, "est.txt", seq.timestamps, system.arena)
-            seq.write_gt(f"{tmp}/gt.txt")
-            ate = evaluate.ate_rmse(f"{tmp}/gt.txt", f"{tmp}/est.txt",
-                                    max_diff=0.05)
+        ates, systems = {}, {}
+        for dev in ("cuda", "cpu"):
+            cfg = load_config(path)
+            cfg["dataset"]["img_size"] = 64
+            engine = OracleEngine(seq, device=dev)
+            system = SLAMSystem(cfg, engine, (seq.h, seq.w),
+                                K=seq.K if cfg["use_calib"] else None,
+                                buffer=32, device=dev)
+            gn.gn_solve.launches = 0
+            for i in range(len(seq)):
+                system.process_frame(i, seq.images[i])
+            system.terminate()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                solves = gn.gn_solve.launches
+            with tempfile.TemporaryDirectory() as tmp:
+                evaluate.save_traj(tmp, "est.txt", seq.timestamps,
+                                   system.arena)
+                seq.write_gt(f"{tmp}/gt.txt")
+                ates[dev] = evaluate.ate_rmse(f"{tmp}/gt.txt",
+                                              f"{tmp}/est.txt", max_diff=0.05)
+            systems[dev] = system
+        system = systems["cuda"]
+        ate = ates["cuda"]
         print(f"oracle drive {mode}: ATE RMSE {ate:.6f} m (limit "
-              f"{ORACLE_ATE_LIMIT[mode]} m), stats {system.stats}, gn_solve "
-              f"launches {gn.gn_solve.launches} [{card}]")
+              f"{ORACLE_ATE_LIMIT[mode]} m; the CPU {ates['cpu']:.6f} m), "
+              f"stats {system.stats}, {system.ba_iters_total} BA iterations, "
+              f"gn_solve launches {solves} [{card}]")
         if system.stats["skipped"] or system.stats["keyframes"] < 2 or \
-                not ate < ORACLE_ATE_LIMIT[mode]:
+                system.stats["ba_rounds"] < 1 or \
+                system.stats != systems["cpu"].stats or \
+                not ate < ORACLE_ATE_LIMIT[mode] or \
+                abs(ate - ates["cpu"]) > ORACLE_ATE_CPU_ATOL:
             raise SystemExit(f"oracle drive {mode} failed")
         out[mode] = ate
+        out[f"{mode}_cpu"] = ates["cpu"]
+        out[f"{mode}_ba_rounds"] = system.stats["ba_rounds"]
     return out
 
 
@@ -1017,18 +1281,22 @@ def main(argv=None):
                        CLIP_TEXTURE)
     heads = check_heads(engine, sd, frames, card)
     del sd
-    launches, system = drive_frontend(engine, mcfg, cfg, frames[:N_FRAMES],
-                                      card, "production drive")
+    launches, system, record, timings = drive_frontend(
+        engine, mcfg, cfg, frames[:N_FRAMES], card, "production drive")
     stages = breakdown(system, frames[-1], card, "production")
     stages.update({k: v for k, v in heads.items()
                    if k.endswith(("_ms", "_kernels"))})
-    del system
-    _, system_exact = drive_frontend(
+    stages.update(timings)
+    stages.update(check_ba(record, cfg, card))
+    stages.update(backend_breakdown(system, record, card))
+    del system, record
+    _, system_exact, _, timings_exact = drive_frontend(
         engine, mcfg, cfg_exact, frames[:N_FRAMES_REFERENCE_EXACT], card,
         "reference-exact drive")
     stages_exact = breakdown(system_exact,
                              frames[N_FRAMES_REFERENCE_EXACT], card,
                              "reference-exact", full=False)
+    stages_exact.update(timings_exact)
     del system_exact
     ate = drive_oracle(card)
 

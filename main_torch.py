@@ -2,9 +2,11 @@
 """Command-line entry point of the PyTorch + CUDA port's dense SLAM pipeline.
 
 The counterpart of ``main.py``: load a dataset, build the engine and the
-frontend (``mast3r_slam_torch``), loop ``SLAMSystem.process_frame`` over the
-frames, export the keyframe trajectory (TUM format), the point cloud (PLY)
-and the keyframe images, and score ATE against a ground truth.
+SLAM system (``mast3r_slam_torch``: tracking, the factor-graph backend and
+relocalization), loop ``SLAMSystem.process_frame`` over the frames, export
+the keyframe trajectory (TUM format), the point cloud (PLY) and the
+keyframe images, and score ATE against a ground truth.  The backend runs
+inline after each keyframe (JAX's ``single_thread`` path).
 
     python3 main_torch.py --dataset <clip> --config config/base.yaml --no-viz
 
@@ -30,7 +32,8 @@ LATER_SLICES = {
     "backend_device": "multi-GPU slice (backend on a second card)",
     "resume_state": "state and threads slice (save_state / load_state)",
     "state_out": "state and threads slice (save_state / load_state)",
-    "oracle_desc": "backend slice (pose-warped and desc_global edges)",
+    "oracle_desc": "retrieval slice (desc_global edges from the oracle's "
+                   "q8 tables)",
     "oracle_retrieval": "retrieval slice (ASMK database)",
     "retrieval_checkpoint": "retrieval slice (ASMK database)",
     "codebook": "retrieval slice (ASMK database)",
@@ -60,7 +63,7 @@ def parse_args(argv=None):
                    help="random tiny model (plumbing smoke runs only)")
     p.add_argument("--oracle", action="store_true",
                    help="oracle engine from the clip's oracle.npz "
-                        "(synthetic clips; drives the frontend without "
+                        "(synthetic clips; drives the system without "
                         "checkpoint weights)")
     p.add_argument("--fp32-head", action="store_true",
                    help="run the DPT/catMLP heads in float32 (the exact "
@@ -138,9 +141,11 @@ def run(system, dataset, args):
     dataset (``len``, ``dataset[i] -> (timestamp, image)``) and the parsed
     arguments (``max_frames``, ``start_frame``, ``diag_out``).  The next
     frame's host work (read, undistort, resize, normalise) runs on one
-    prefetch thread while the device works on the current one.  Stops when
-    the tracker loses the map: relocalization is a later slice.  Returns
-    the run's summary."""
+    prefetch thread while the device works on the current one.  A frame
+    that loses tracking puts the system in RELOC, where the next frames try
+    to relocalize, as in ``main.py``.  Returns the run's summary
+    (``lost_at``: the first frame that lost tracking; ``lost_at_end``: the
+    run ended in RELOC)."""
     n = len(dataset)
     if args.max_frames:
         n = min(n, args.max_frames)
@@ -172,11 +177,10 @@ def run(system, dataset, args):
                     info["i"] = i
                     info["ts"] = float(timestamp)
                     diag_f.write(json.dumps(info) + "\n")
-                if system.mode.name == "RELOC":
+                if system.mode.name == "RELOC" and lost_at is None:
                     lost_at = i
                     print(f"[lost] tracking lost at frame {i}; "
-                          f"relocalization is a later slice of the port")
-                    break
+                          f"relocalizing")
                 if i % 30 == 0 and i > 0:
                     print(f"FPS: {done / (time.time() - t0):.2f}  "
                           f"mode={info['mode']} "
@@ -184,17 +188,22 @@ def run(system, dataset, args):
         finally:
             if diag_f is not None:
                 diag_f.close()
+    lost_at_end = system.mode.name == "RELOC"
     system.terminate()
     wall = time.time() - t0
     trk = system.tracker
+    rounds = system.stats["ba_rounds"]
     return {
         "frames": done,
         "seconds": wall,
         "fps": done / max(wall, 1e-9),
         "lost_at": lost_at,
+        "lost_at_end": lost_at_end,
         "stats": dict(system.stats),
         "kf_rate": system.stats["keyframes"] / max(done, 1),
         "mean_gn_iters": trk.gn_iters_total / max(trk.gn_frames, 1),
+        "ba_rounds": rounds,
+        "mean_ba_iters": system.ba_iters_total / max(rounds, 1),
     }
 
 
@@ -284,24 +293,32 @@ def main(argv=None):
             downsample=int(config["dataset"].get("img_downsample", 1)),
             match_cfg=MatchingConfig.from_dict(config["matching"]),
             device=device)
-    print("[note] retrieval, the backend and relocalization are later "
-          "slices of the port: frontend only, no loop closure")
+    # the retrieval database is a later slice: no loop-closure or
+    # relocalization proposals, as main.py without a retrieval checkpoint
+    retrieval = None
+    print("[note] retrieval is a later slice of the port: no loop-closure "
+          "or relocalization proposals")
+    if not config.get("single_thread", False):
+        print("[note] single_thread: False: the backend runs inline after "
+              "each keyframe (main.py's single_thread path); the threaded "
+              "backend is the state and threads slice")
 
     profiler = TimeProfiler(enabled=args.profile)
-    system = SLAMSystem(config, engine, (h, w), K=K, device=device,
-                        profiler=profiler)
+    system = SLAMSystem(config, engine, (h, w), K=K, retrieval=retrieval,
+                        device=device, profiler=profiler)
     summary = run(system, dataset, args)
     print(f"done: {summary['frames']} frames in {summary['seconds']:.1f}s "
           f"({summary['fps']:.2f} FPS)")
     print(f"stats: {summary['stats']}")
     print(f"rates: kf_rate {summary['kf_rate']:.4f} mean_gn_iters "
-          f"{summary['mean_gn_iters']:.2f}")
+          f"{summary['mean_gn_iters']:.2f} ba_rounds {summary['ba_rounds']} "
+          f"mean_ba_iters {summary['mean_ba_iters']:.2f}")
 
     if getattr(dataset, "save_results", True):
         export(system, dataset, args)
     if args.profile:
         profiler.print_summary()
-    return 3 if summary["lost_at"] is not None else 0
+    return 3 if summary["lost_at_end"] else 0
 
 
 if __name__ == "__main__":

@@ -151,6 +151,10 @@ class KeyframeArena:
     def buffer(self):
         return self.frame_id.shape[0]
 
+    @property
+    def img_hw(self):
+        return self.uimg.shape[1], self.uimg.shape[2]
+
 
 def make_arena(buffer: int, h: int, w: int, n_patches: int, feat_dim: int,
                device=None) -> KeyframeArena:
@@ -167,6 +171,27 @@ def make_arena(buffer: int, h: int, w: int, n_patches: int, feat_dim: int,
         feat=torch.zeros((buffer, n_patches, feat_dim), **kw),
         pos=torch.zeros((buffer, n_patches, 2), dtype=torch.int64, **kw),
     )
+
+
+def arena_grow(arena: KeyframeArena, new_buffer: int) -> KeyframeArena:
+    """A copy of the arena with ``new_buffer`` slots, the new ones zero
+    with identity poses (frame.py:227).  The pipeline grows the store by
+    power-of-two buckets before an append would pass its capacity."""
+    if new_buffer < arena.buffer:
+        raise ValueError(f"arena_grow: {new_buffer} < {arena.buffer}")
+    pad = new_buffer - arena.buffer
+
+    def grow(a):
+        return torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+
+    return dataclasses.replace(
+        arena,
+        frame_id=grow(arena.frame_id), uimg=grow(arena.uimg),
+        T_WC=torch.cat([arena.T_WC,
+                        sim3.identity((pad,), device=arena.T_WC.device)]),
+        X=grow(arena.X), C=grow(arena.C), N=grow(arena.N),
+        N_updates=grow(arena.N_updates), feat=grow(arena.feat),
+        pos=grow(arena.pos))
 
 
 def arena_set(arena: KeyframeArena, idx: int, frame: Frame) -> KeyframeArena:
@@ -208,3 +233,24 @@ def arena_get(arena: KeyframeArena, idx: int) -> Frame:
         N_updates=arena.N_updates[idx].clone(),
         score=torch.zeros((), device=arena.X.device),
     )
+
+
+def arena_pop_last(arena: KeyframeArena) -> KeyframeArena:
+    """Drop the last keyframe (frame.py:299); its slot is reused by the
+    next append."""
+    arena.n_size = max(arena.n_size - 1, 0)
+    return arena
+
+
+def arena_update_poses(arena: KeyframeArena, T_WCs, idx) -> KeyframeArena:
+    """Write optimised poses T_WCs (n, 8) into the slots ``idx`` (n,), a
+    host array (frame.py:303).  A slot outside the arena is dropped, as
+    JAX's scatter drops it: the backend marks pinned and padded rows so
+    (``global_opt.FactorGraph.solve_poses``).  The mask is taken on the
+    host, so the write costs no sync."""
+    idx = torch.as_tensor(idx, dtype=torch.int64, device="cpu")
+    rows = torch.nonzero((idx >= 0) & (idx < arena.buffer))[:, 0]
+    dev = arena.T_WC.device
+    arena.T_WC[idx[rows].to(dev)] = T_WCs.index_select(0, rows.to(dev)) \
+        .to(arena.T_WC.dtype)
+    return arena

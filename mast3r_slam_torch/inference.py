@@ -2,7 +2,9 @@
 
 Mirrors ``mast3r_slam_tpu/inference.py``: encode, the asymmetric two-view
 decode with both heads, the mono (self-pair) decode, the asymmetric
-decode + dense match of the tracker, and the host-side image resize.
+decode + dense match of the tracker, the backend's symmetric decode + match
+and decode-free pose-warped match of a factor-graph edge, and the
+host-side image resize.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from .device import resolve_device
 from .models.mast3r import MASt3R, cast_trunk_params_bf16
+from .ops import lie_sim3 as sim3
 from .ops import matching
 
 
@@ -100,6 +103,68 @@ class InferenceEngine:
 
         return (idx_i2j, valid_match_j, flat(Xii), flat(Cii), flat(Qii),
                 flat(Xji), flat(Cji), flat(Qji), *desc8)
+
+    @torch.no_grad()
+    def match_arrays_warp(self, X_arena, T_arena, i, j, D11_flat, D21_flat,
+                          img_hw):
+        """Decode-free pose-warped match of the consecutive edge (i, j)
+        (inference.py:254): keyframe i's canonical pointmap against
+        keyframe j's canonical points under the relative pose, with the
+        tracker's int8 q8 tables (D11 keyframe i's, D21 keyframe j's, each
+        (1, h*w, f)), on the edge query grid.  Returns (idx_i_to_j
+        (1, n), valid (1, n, 1))."""
+        h, w = img_hw
+        f = D11_flat.shape[-1]
+        X11 = X_arena[i].reshape(1, h, w, 3)
+        T_ij = sim3.rel(T_arena[i], T_arena[j])
+        X21 = sim3.act(T_ij, X_arena[j]).reshape(1, h, w, 3)
+        return matching.match(
+            X11, X21, D11_flat.reshape(1, h, w, f),
+            D21_flat.reshape(1, h, w, f), cfg=self.match_cfg,
+            query_subsample=self.match_cfg.edge_query_subsample)
+
+    @torch.no_grad()
+    def decode_symmetric_batch(self, feat_i, pos_i, feat_j, pos_j):
+        """Both directions of E edges (inference.py:288), one B=2 two-view
+        forward per edge as the JAX ``lax.map`` runs them.  feat_i/j
+        (E, N, C).  Returns X, C, D, Q, each (4, E, h, w, ...), ordered
+        [ii, ji, jj, ij]."""
+        per_edge = []
+        for e in range(feat_i.shape[0]):
+            f1 = torch.stack([feat_i[e], feat_j[e]])
+            p1 = torch.stack([pos_i[e], pos_j[e]])
+            f2 = torch.stack([feat_j[e], feat_i[e]])
+            p2 = torch.stack([pos_j[e], pos_i[e]])
+            v1, v2 = self.decode_pair(f1, p1, f2, p2)
+            # view 1 = [res11 of (i, j); res11 of (j, i)] = [ii; jj],
+            # view 2 = [ji; ij]
+            per_edge.append([torch.stack([A1[0], A2[0], A1[1], A2[1]])
+                             for A1, A2 in zip(v1, v2)])
+        return tuple(torch.stack([q[k] for q in per_edge], dim=1)
+                     for k in range(4))
+
+    @torch.no_grad()
+    def match_symmetric(self, feat_i, pos_i, feat_j, pos_j):
+        """Symmetric decode + two-directional match of E edges
+        (inference.py:345), the matcher on the edge query grid.  Returns
+        (idx_i2j, idx_j2i (E, n), valid_j, valid_i (E, n, 1), Qii, Qjj,
+        Qji, Qij (E, h*w, 1))."""
+        X, C, D, Q = self.decode_symmetric_batch(feat_i, pos_i, feat_j,
+                                                 pos_j)
+        E = X.shape[1]
+        X11 = torch.cat([X[0], X[2]])
+        X21 = torch.cat([X[1], X[3]])
+        D11 = torch.cat([D[0], D[2]])
+        D21 = torch.cat([D[1], D[3]])
+        idx, valid = matching.match(
+            X11, X21, D11, D21, cfg=self.match_cfg,
+            query_subsample=self.match_cfg.edge_query_subsample)
+
+        def flat1(A):
+            return A.reshape(E, -1, 1)
+
+        return (idx[:E], idx[E:], valid[:E], valid[E:],
+                flat1(Q[0]), flat1(Q[2]), flat1(Q[1]), flat1(Q[3]))
 
 
 # ---------------------------------------------------------------------------

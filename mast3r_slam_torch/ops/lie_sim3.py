@@ -191,6 +191,21 @@ def retr(T, xi):
     return normalize(mul(exp(xi), T))
 
 
+def apply_adj_inv(T, v):
+    """Row-vector application of the inverse adjoint: turns a local
+    (camera-i frame) Jacobian row into a world-frame one
+    (lie_sim3.py:242).  v (..., 7) ordered [a(3), b(3), c(1)]; T is the
+    world pose T_WCi."""
+    t, q, s = t_of(T), q_of(T), s_of(T)
+    s_inv = 1.0 / s
+    a, b, c = v[..., 0:3], v[..., 3:6], v[..., 6:7]
+    Ra = quat_act(q, a)
+    y0 = s_inv * Ra
+    y1 = quat_act(q, b) + s_inv * _cross(t.expand_as(Ra), Ra)
+    y2 = c + s_inv * torch.sum(t * Ra, dim=-1, keepdim=True)
+    return torch.cat([y0, y1, y2], dim=-1)
+
+
 def quat_rot_entries(q):
     """The 9 rotation-matrix entries of unit quaternions q (..., 4) as a 3x3
     nested tuple (lie_sim3.py:268)."""

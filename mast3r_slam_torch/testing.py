@@ -464,3 +464,22 @@ class OracleEngine:
         X = self._pointmap(self._fid(feat))
         return (self._t(X[None]),
                 torch.full((1, self.hw, 1), 10.0, device=self.device))
+
+    def match_symmetric(self, feat_i, pos_i, feat_j, pos_j):
+        """Both directions of each edge from the true projection
+        (testing.py:404), confidence 4 everywhere.  Like the JAX oracle it
+        has no ``match_arrays_warp``: the backend completes a reused
+        consecutive edge with ``match_asymmetric``."""
+        B = feat_i.shape[0]
+        idx_i2j = np.zeros((B, self.hw), np.int64)
+        idx_j2i = np.zeros((B, self.hw), np.int64)
+        vm_j = np.zeros((B, self.hw), bool)
+        vm_i = np.zeros((B, self.hw), bool)
+        for b in range(B):
+            fi = self._fid(feat_i[b:b + 1])
+            fj = self._fid(feat_j[b:b + 1])
+            idx_i2j[b], vm_j[b] = self._match(fi, fj)
+            idx_j2i[b], vm_i[b] = self._match(fj, fi)
+        Q = torch.full((B, self.hw, 1), 4.0, device=self.device)
+        return (self._t(idx_i2j), self._t(idx_j2i), self._t(vm_j[..., None]),
+                self._t(vm_i[..., None]), Q, Q, Q, Q)

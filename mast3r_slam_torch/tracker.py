@@ -306,7 +306,11 @@ class FrameTracker:
         self.idx_f2k = None
 
     def track(self, frame: Frame, keyframe: Frame):
-        """Returns (new_kf, frame, keyframe, try_reloc) (tracker.py:638)."""
+        """Returns (new_kf, frame, keyframe, try_reloc, reuse)
+        (tracker.py:638).  ``reuse`` = (idx_f2k, valid_match, Qff, Qkf,
+        desc8_frame, desc8_kf), the frame -> keyframe direction that the
+        backend reuses for the consecutive edge when the frame becomes a
+        keyframe; None when tracking is lost."""
         idx_init = self.idx_f2k
         if idx_init is None:
             idx_init = torch.arange(frame.hw,
@@ -324,8 +328,10 @@ class FrameTracker:
         }
         self.idx_f2k = res.idx_f2k
         if match_frac < self.cfg.min_match_frac or not res.ok:
-            return False, frame, keyframe, True
+            return False, frame, keyframe, True, None
         new_kf = self.last_diag["new_kf_metric"] < self.cfg.match_frac_thresh
         if new_kf:
             self.reset_idx_f2k()
-        return new_kf, res.frame, res.keyframe, False
+        reuse = (res.idx_f2k, res.valid_match, res.Qff, res.Qkf,
+                 res.desc8_frame, res.desc8_kf)
+        return new_kf, res.frame, res.keyframe, False, reuse

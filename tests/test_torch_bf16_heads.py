@@ -55,7 +55,7 @@ from mast3r_slam_torch.models.mast3r import (MASt3R, MASt3RConfig,
 from mast3r_slam_torch.utils.config import (REFERENCE_EXACT_OVERRIDES,
                                             load_config, merge_config)
 from test_torch_frontend import (H, W, N_FRAMES, _clip_inputs, _run_jax,
-                                 _run_port)
+                                 _rounds_against_jax, _run_port)
 
 # the acceptance bounds of tests/test_model.py:161-195
 COS_MIN = 0.999
@@ -70,7 +70,21 @@ RAW_REL_MAX = 1e-5
 # to 4.7e-4)
 PAIR_REL_MAX = 1e-5
 BF16_POSE_ATOL = 2e-2   # the 6-frame clip with bf16 heads on both sides
+# a BA round of the port against JAX's solve of the same inputs
+BF16_ROUND_POSE_ATOL = 1e-2
 OUT_KEYS = ("pts3d", "conf", "desc", "desc_conf")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops on one thread in this module, restored after: the
+    suite runs in several worker processes at once, and PyTorch's thread
+    pool in each of them then oversubscribes the cores, which slows the
+    port's many small ops by more than an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cos(a, b):
@@ -369,8 +383,9 @@ def test_main_torch_builds_bf16_heads_unless_fp32_head(argv, head_dtype):
 @pytest.fixture(scope="module")
 def bf16_clip_runs():
     """The 6-frame tiny clip of ``test_torch_frontend.py`` (tracking block of
-    ``config/base.yaml`` at the reference-exact matcher) with bf16 heads on
-    both sides."""
+    ``config/base.yaml`` at the reference-exact matcher; the consecutive
+    edge pose-warped on the full grid) with bf16 heads on both sides, each
+    side's ``SLAMSystem`` with its backend."""
     cfg = merge_config(load_config("config/base.yaml"),
                        {"matching": REFERENCE_EXACT_OVERRIDES["matching"]})
     sd, params, frames = _clip_inputs()
@@ -379,23 +394,42 @@ def bf16_clip_runs():
 
 
 def test_bf16_frontend_modes_and_keyframes_match_jax(bf16_clip_runs):
-    (jlog, jkf), (tlog, tkf) = bf16_clip_runs
+    (jlog, jkf, jsys), (tlog, tkf, tsys) = bf16_clip_runs
     assert len(tlog) == len(jlog) == N_FRAMES
     assert all(s["mode"] == "TRACKING" for s in tlog[1:])
     assert [s["mode"] for s in tlog] == [s["mode"] for s in jlog]
     assert [s["new_kf"] for s in tlog] == [s["new_kf"] for s in jlog]
     assert tkf.shape == jkf.shape
+    assert tsys.stats == jsys.stats and tsys.stats["ba_rounds"] >= 1
+    n = jsys.graph.n_edges
+    np.testing.assert_array_equal(tsys.graph.ii[:n], jsys.graph.ii[:n])
+    np.testing.assert_array_equal(tsys.graph.jj[:n], jsys.graph.jj[:n])
 
 
 def test_bf16_frontend_poses_match_jax(bf16_clip_runs):
-    """Poses within atol ``BF16_POSE_ATOL``: measured 1.01e-2 over the
-    clip, 5.4e-3 on the keyframes.  f32 heads on either side fail it: the
-    JAX f32 frontend differs from the JAX bf16 one by 4.27e-2 on this
-    clip, the port's f32 frontend by 4.10e-2.  The clip's f32 figure
-    (1.8e-3) is tighter because bf16 heads turn the trunks' last-bit
-    differences into whole-ulp ones in the pointmaps."""
-    (jlog, jkf), (tlog, tkf) = bf16_clip_runs
-    for js, ts in zip(jlog, tlog):
-        np.testing.assert_allclose(ts["T_WC"], js["T_WC"],
-                                   atol=BF16_POSE_ATOL, rtol=0)
-    np.testing.assert_allclose(tkf, jkf, atol=BF16_POSE_ATOL, rtol=0)
+    """Up to the first backend round (the frames tracked against map poses
+    no BA has touched), poses within atol ``BF16_POSE_ATOL``: measured
+    1.01e-2.  f32 heads on either side failed it before the port had a
+    backend: the JAX f32 frontend differed from the JAX bf16 one by 4.27e-2
+    on this clip, the port's f32 frontend by 4.10e-2.  The clip's f32
+    figure (1.8e-3) is tighter because bf16 heads turn the trunks' last-bit
+    differences into whole-ulp ones in the pointmaps.  After it the runs
+    are not compared pose for pose: the round starts from inputs that
+    differ (keyframe poses 5.4e-3 apart, the edge's indices equal on 82%
+    of the pixels), and it does not converge (|dx| 0.22 in its tenth and
+    last iteration), so it is chaotic: JAX's own solve moves by 3.1e-2
+    with the port's poses in place of its own, and the port's run ends
+    3.4e-2 from JAX's (``test_torch_frontend.
+    test_production_frontend_poses_match`` has the same on the f32 clip).
+    The port's round is held to the JAX package's solve of the port's own
+    inputs instead, at atol ``BF16_ROUND_POSE_ATOL`` (measured 4.0e-3);
+    the keyframe poses are its result."""
+    (jlog, _, _), (tlog, _, tsys) = bf16_clip_runs
+    k = [s["new_kf"] for s in jlog].index(True)
+    for f, (js, ts) in enumerate(zip(jlog, tlog)):
+        if f <= k:
+            np.testing.assert_allclose(ts["T_WC"], js["T_WC"], rtol=0,
+                                       atol=BF16_POSE_ATOL)
+    diffs = _rounds_against_jax(tsys, BF16_ROUND_POSE_ATOL)
+    print(f"bf16 rounds, port against JAX on the port's inputs: "
+          f"{[f'{d:.3g}' for d in diffs]}")

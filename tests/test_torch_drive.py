@@ -1,43 +1,62 @@
-"""The command-line drive of the port: oracle clips through the frontend,
-export, ATE, the dataset loaders and ``main_torch.main``.
+"""The command-line drive of the port: oracle clips through the SLAM
+system, export, ATE, relocalization, the dataset loaders and
+``main_torch.main``.
 
 * A 16-frame 48x64 oracle clip (the fixture of ``tests/test_pipeline.py``)
   is rendered and saved by the JAX ``SyntheticSequence``; the port loads the
-  same ``.npz``.  The port's ``SLAMSystem`` and a JAX frontend loop (the
-  frontend of ``pipeline.py:360-433`` written out from the JAX
-  ``OracleEngine``, ``FrameTracker`` and ``update_pointmap``, without the
-  backend) must make the same keyframe decisions; poses agree to atol 1e-3
-  (both oracles hand over identical matches and pointmaps, so what differs
-  is f32 summation order in up to 50 GN iterations a frame, chained over 16
-  frames); the port's ATE stays under the JAX tests' limits (0.05 m
-  uncalibrated, 0.1 m calibrated, ``tests/test_pipeline.py:49, 68``).
+  same ``.npz``.  The port's ``SLAMSystem`` and the JAX package's, each
+  with its ``OracleEngine`` and its backend inline (``single_thread`` of
+  the eval configs), must make the same keyframe decisions, give the same
+  stats (4 keyframes, 3 BA rounds), the same edges and the same BA
+  iteration total; poses agree to atol 2e-4 (measured 2.2e-5 at most: both
+  oracles hand over identical matches and pointmaps, so what differs is
+  f32 summation order in the GN solves, chained over 16 frames), ATE
+  within 1e-4 of the JAX package's (measured 7.6e-6 and 6e-8; ``-s``
+  prints both) and under the JAX tests' limits (0.05 m uncalibrated, 0.1
+  m calibrated, ``tests/test_pipeline.py:49, 68``).
+* Relocalization on the blackout clip of ``tests/test_retrieval.py:119``
+  with one deterministic retrieval stub on both sides: the same mode
+  sequence, stats and edges; with ``NullRetrieval`` both stay in RELOC.
 * ``evaluate``: the hand-computed Sim(3) case of
   ``tests/test_pipeline.py:259`` to rtol 1e-6, and exact round trips.
 * ``dataloader``: equal, array for array, to the JAX loader on the same
   folders.
 """
 
-import jax.numpy as jnp
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 import main_torch
 from mast3r_slam_tpu import dataloader as jdl
-from mast3r_slam_tpu import frame as jfr
+from mast3r_slam_tpu import evaluate as jevaluate
 from mast3r_slam_tpu import testing as jtesting
-from mast3r_slam_tpu.ops import lie_sim3 as jsim3
-from mast3r_slam_tpu.tracker import FrameTracker as JaxTracker
-from mast3r_slam_tpu.tracker import TrackerConfig as JaxTrackerConfig
+from mast3r_slam_tpu.pipeline import SLAMSystem as JaxSLAMSystem
 from mast3r_slam_tpu.utils import config as jconfig
 from mast3r_slam_torch import dataloader as tdl
 from mast3r_slam_torch import evaluate, testing
-from mast3r_slam_torch.pipeline import SLAMSystem
+from mast3r_slam_torch.pipeline import NullRetrieval, SLAMSystem
 from mast3r_slam_torch.utils.config import load_config
 
 H, W, N_FRAMES = 48, 64, 16
-POSE_ATOL = 1e-3
+POSE_ATOL = 2e-4
+RELOC_POSE_ATOL = 3e-6
 ATE_LIMIT = {False: 0.05, True: 0.1}
+ATE_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops on one thread in this module, restored after: the
+    suite runs in several worker processes at once, and PyTorch's thread
+    pool in each of them then oversubscribes the cores, which slows the
+    port's many small ops by more than an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -61,34 +80,14 @@ def _cfg(calib):
 
 
 def _run_jax(seq, cfg, calib):
-    engine = jtesting.OracleEngine(seq)
-    tracker = JaxTracker(engine, JaxTrackerConfig.from_config(cfg),
-                         jnp.asarray(seq.K) if calib else None)
-    fmode = jfr.FilteringMode.from_str(cfg["tracking"]["filtering_mode"])
-    arena = jfr.make_arena(32, H, W, engine.n_patches, engine.feat_dim)
-    mode, last_T, log = jfr.Mode.INIT, jsim3.identity(), []
+    system = JaxSLAMSystem(cfg, jtesting.OracleEngine(seq), (H, W),
+                           K=seq.K if calib else None, buffer=32)
+    log = []
     for i in range(len(seq.X_cam)):
-        feat, pos = engine.encode(None)
-        fr = jfr.make_empty_frame(H, W, engine.n_patches, engine.feat_dim) \
-            .replace(frame_id=jnp.asarray(i, jnp.int32), T_WC=last_T,
-                     feat=feat[0], pos=pos[0])
-        new_kf = False
-        if mode == jfr.Mode.INIT:
-            X, C = engine.inference_mono(fr.feat[None], fr.pos[None])
-            fr = jfr.update_pointmap(fr, X[0], C[0], fmode, True)
-            arena = jfr.arena_append(arena, fr)
-            mode, last_T = jfr.Mode.TRACKING, fr.T_WC
-        else:
-            last = int(arena.n_size) - 1
-            new_kf, fr, kf, try_reloc, _ = tracker.track(
-                fr, jfr.arena_get(arena, last))
-            assert not try_reloc
-            arena = jfr.arena_set(arena, last, kf)
-            last_T = fr.T_WC
-            if new_kf:
-                arena = jfr.arena_append(arena, fr)
-        log.append((bool(new_kf), np.asarray(last_T)))
-    return log, np.asarray(arena.T_WC[:int(arena.n_size)])
+        info = system.process_frame(i, seq.images[i])
+        log.append((bool(info["new_kf"]), np.asarray(system.last_T_WC)))
+    system.terminate()
+    return log, system
 
 
 def _run_port(seq, cfg, calib):
@@ -103,20 +102,36 @@ def _run_port(seq, cfg, calib):
     return log, system
 
 
+@pytest.fixture(scope="module")
+def drives(clip):
+    """Both packages' systems over the clip, per calibration mode, run
+    once for the tests that read them."""
+    jseq, tseq, _ = clip
+    cache = {}
+
+    def get(calib):
+        if calib not in cache:
+            cfg = _cfg(calib)
+            cache[calib] = (_run_jax(jseq, cfg, calib),
+                            _run_port(tseq, cfg, calib))
+        return cache[calib]
+
+    return get
+
+
 @pytest.mark.parametrize("calib", [False, True],
                          ids=["uncalibrated", "calibrated"])
-def test_oracle_drive_matches_jax_frontend(clip, calib, tmp_path):
+def test_oracle_drive_matches_jax_frontend(clip, drives, calib, tmp_path):
     jseq, tseq, _ = clip
-    cfg = _cfg(calib)
-    jlog, jkf = _run_jax(jseq, cfg, calib)
-    tlog, system = _run_port(tseq, cfg, calib)
+    (jlog, jsys), (tlog, system) = drives(calib)
     assert [k for k, _ in tlog] == [k for k, _ in jlog]
     assert system.stats["skipped"] == 0 and system.stats["keyframes"] >= 2
     assert system.mode.name == "TERMINATED"
     for (_, tT), (_, jT) in zip(tlog, jlog):
         np.testing.assert_allclose(tT, jT, atol=POSE_ATOL, rtol=0)
     n = system.arena.n_size
-    np.testing.assert_allclose(system.arena.T_WC[:n].numpy(), jkf,
+    np.testing.assert_allclose(system.arena.T_WC[:n].numpy(),
+                               np.asarray(jsys.arena.T_WC[:n]),
                                atol=POSE_ATOL, rtol=0)
 
     evaluate.save_traj(tmp_path, "est.txt", tseq.timestamps, system.arena)
@@ -138,6 +153,108 @@ def test_oracle_drive_matches_jax_frontend(clip, calib, tmp_path):
     pts, cols = evaluate.load_ply(tmp_path / "map.ply")
     assert len(pts) > 1000 and np.isfinite(pts).all()
     assert cols.dtype == np.uint8 and cols.shape == pts.shape
+
+
+@pytest.mark.parametrize("calib", [False, True],
+                         ids=["uncalibrated", "calibrated"])
+def test_oracle_system_backend_matches_jax(clip, drives, calib, tmp_path):
+    """The whole system with its backend: JAX's stats (4 keyframes, 3 BA
+    rounds), edges and BA iteration total; ATE within 1e-4 of JAX's."""
+    jseq, tseq, _ = clip
+    (_, jsys), (_, system) = drives(calib)
+    assert system.stats == jsys.stats
+    assert system.stats["keyframes"] == 4 and system.stats["ba_rounds"] == 3
+    g, jg = system.graph, jsys.graph
+    assert g.n_edges == jg.n_edges == 3
+    np.testing.assert_array_equal(g.ii[:g.n_edges], jg.ii[:jg.n_edges])
+    np.testing.assert_array_equal(g.jj[:g.n_edges], jg.jj[:jg.n_edges])
+    assert system.ba_iters_total == jsys.ba_iters_total
+    assert system.ba_ok_total == jsys.ba_ok_total == 3
+    tseq.write_gt(tmp_path / "gt.txt")
+    evaluate.save_traj(tmp_path, "port.txt", tseq.timestamps, system.arena)
+    jevaluate.save_traj(tmp_path, "jax.txt", jseq.timestamps, jsys.arena)
+    ate = evaluate.ate_rmse(tmp_path / "gt.txt", tmp_path / "port.txt",
+                            max_diff=0.05)
+    jate = jevaluate.ate_rmse(tmp_path / "gt.txt", tmp_path / "jax.txt",
+                              max_diff=0.05)
+    print(f"oracle ATE {'calibrated' if calib else 'uncalibrated'}: port "
+          f"{ate:.6f} m, JAX {jate:.6f} m")
+    assert abs(ate - jate) <= ATE_ATOL, (ate, jate)
+
+
+def test_arena_grows_past_its_buffer(clip):
+    """``SLAMSystem`` grows a full arena by a power of two before an append
+    would pass its end (pipeline.py:245), the keyframes kept."""
+    _, tseq, _ = clip
+    system = SLAMSystem(_cfg(False), testing.OracleEngine(tseq, device="cpu"),
+                        (H, W), buffer=1, device="cpu")
+    frames = [system.create_frame(i, tseq.images[i]) for i in range(3)]
+    for k, frame in enumerate(frames):
+        system._arena_append(frame.replace(X_canon=frame.X_canon + k))
+    assert system.arena.buffer == 4 and system.arena.n_size == 3
+    for k in range(3):
+        assert int(system.arena.frame_id[k]) == k
+        assert torch.equal(system.arena.X[k], frames[k].X_canon + k)
+        assert torch.equal(system.arena.feat[k], frames[k].feat)
+    assert torch.equal(system.arena.T_WC[3], torch.tensor(
+        [0, 0, 0, 0, 0, 0, 1, 1.0]))
+
+
+class RecentKeyframes:
+    """A deterministic retrieval stub: proposes the k most recent
+    keyframes, for either package's arena."""
+
+    def update(self, frame, arena, add_after_query, k, min_thresh):
+        n = int(arena.n_size)
+        return list(range(n - 1, max(n - 1 - k, -1), -1))
+
+
+@pytest.mark.parametrize("retrieval", [RecentKeyframes, NullRetrieval],
+                         ids=["recent-keyframes", "null"])
+def test_relocalization_matches_jax(tmp_path, retrieval):
+    """The blackout clip of ``tests/test_retrieval.py:119`` (14 frames,
+    32x48, frame 6 blacked out): tracking is lost at frame 6; with the
+    stub both systems relocalize on the same frame against the same
+    keyframe and go on tracking, with the same mode sequence, stats, edges
+    and poses within atol 3e-6 (measured 3.6e-7).  With ``NullRetrieval``
+    both stay in RELOC."""
+    jseq = jtesting.SyntheticSequence(n_frames=14, h=32, w=48, seed=0,
+                                      traj_scale=0.4)
+    jseq.save(tmp_path / "o.npz")
+    tseq = testing.SyntheticSequence.load(tmp_path / "o.npz")
+    cfg = load_config("config/eval_no_calib.yaml")
+    cfg["dataset"]["img_size"] = 48
+    js = JaxSLAMSystem(cfg, jtesting.OracleEngine(jseq, blackout_frames={6}),
+                       (32, 48), buffer=32, retrieval=retrieval())
+    ts = SLAMSystem(cfg, testing.OracleEngine(tseq, blackout_frames={6},
+                                              device="cpu"),
+                    (32, 48), buffer=32, retrieval=retrieval(), device="cpu")
+    # with no proposals RELOC persists: two frames of it show that
+    n_frames = 14 if retrieval is RecentKeyframes else 9
+    jmodes, tmodes = [], []
+    for i in range(n_frames):
+        jmodes.append(js.process_frame(i, jseq.images[i])["mode"])
+        tmodes.append(ts.process_frame(i, jseq.images[i])["mode"])
+    assert tmodes == jmodes
+    assert tmodes[6] == "TRACKING->RELOC"
+    assert ts.stats == js.stats and ts.mode.name == js.mode.name
+    assert ts.stats["skipped"] == 1 and ts.stats["reloc"] >= 1
+    g, jg = ts.graph, js.graph
+    np.testing.assert_array_equal(g.ii[:g.n_edges], jg.ii[:jg.n_edges])
+    np.testing.assert_array_equal(g.jj[:g.n_edges], jg.jj[:jg.n_edges])
+    assert ts.reloc_attempts == js.reloc_attempts
+    if retrieval is NullRetrieval:
+        assert ts.mode.name == "RELOC" and tmodes[-1] == "RELOC"
+        assert ts.stats["keyframes"] == 1 and g.n_edges == 0
+        return
+    assert ts.mode.name == "TRACKING" and tmodes[-1] == "TRACKING"
+    assert ts.stats["tracked"] >= 8 and ts.stats["keyframes"] >= 2
+    assert g.n_edges >= 1
+    n = ts.arena.n_size
+    assert n == int(js.arena.n_size)
+    np.testing.assert_allclose(ts.arena.T_WC[:n].numpy(),
+                               np.asarray(js.arena.T_WC[:n]),
+                               atol=RELOC_POSE_ATOL, rtol=0)
 
 
 def test_system_refuses_K_that_disagrees_with_the_config(clip):
@@ -300,11 +417,28 @@ def test_main_torch_oracle_end_to_end(clip, tmp_path, monkeypatch, capsys,
                                       config, calib):
     """``main_torch.py --dataset <clip> --oracle --cpu --no-viz --gt``:
     writes the trajectory, the .ply, the keyframes and the diagnostics, and
-    prints an ATE under the JAX test's limit."""
-    _, _, d = clip
+    prints the system's BA rounds and mean BA iterations and the ATE of the
+    trajectory its system holds (to the printed 1e-4).  The eval configs
+    take every second frame, and on those 8 frames the JAX package's own
+    ``SLAMSystem`` with its backend gives 0.0577 m uncalibrated, above the
+    16-frame clip's 0.05 m: so the run is held to the JAX system on the
+    same 8 frames, as ``main.py`` feeds them, instead of to that limit:
+    the same stats, edges and BA iteration total, and an ATE within
+    ``ATE_ATOL`` of JAX's (measured 0.057747 against 0.057739 m
+    uncalibrated, 0.039821 m on both sides calibrated; ``-s`` prints
+    them)."""
+    jseq, tseq, d = clip
     monkeypatch.chdir(tmp_path)
     root = main_torch.pathlib.Path(main_torch.__file__).parent
     (tmp_path / "config").symlink_to(root / "config")
+    systems = []
+    run = main_torch.run
+
+    def spy(system, dataset, args):
+        systems.append(system)
+        return run(system, dataset, args)
+
+    monkeypatch.setattr(main_torch, "run", spy)
     rc = main_torch.main([
         "--dataset", str(d), "--config", config, "--oracle", "--cpu",
         "--no-viz", "--gt", str(d / "gt.txt"), "--ate-max-diff", "0.05",
@@ -314,24 +448,73 @@ def test_main_torch_oracle_end_to_end(clip, tmp_path, monkeypatch, capsys,
     assert rc == 0
     name = d.stem
     ate = float(out.split("ATE RMSE (Sim3-aligned):")[1].split()[0])
-    assert ate < ATE_LIMIT[calib]
+    (system,) = systems
+    sub = int(system.cfg["dataset"]["subsample"])
+    evaluate.save_traj(tmp_path, "held.txt", tseq.timestamps[::sub],
+                       system.arena)
+    held = evaluate.ate_rmse(d / "gt.txt", tmp_path / "held.txt",
+                             max_diff=0.05)
+    assert abs(ate - held) <= 5e-5   # the printed ATE is rounded to 1e-4
+    # the JAX system on the frames main.py takes (main.py:204-233)
+    jsub = copy.copy(jseq)
+    jsub.X_cam, jsub.X_world = jseq.X_cam[::sub], jseq.X_world[::sub]
+    jsub.T_WC, jsub.images = jseq.T_WC[::sub], jseq.images[::sub]
+    _, jsys = _run_jax(jsub, _cfg(calib), calib)
+    assert system.stats == jsys.stats
+    g, jg = system.graph, jsys.graph
+    assert g.n_edges == jg.n_edges
+    np.testing.assert_array_equal(g.ii[:g.n_edges], jg.ii[:jg.n_edges])
+    np.testing.assert_array_equal(g.jj[:g.n_edges], jg.jj[:jg.n_edges])
+    assert system.ba_iters_total == jsys.ba_iters_total
+    jevaluate.save_traj(tmp_path, "jax.txt", jseq.timestamps[::sub],
+                        jsys.arena)
+    jate = jevaluate.ate_rmse(d / "gt.txt", tmp_path / "jax.txt",
+                              max_diff=0.05)
+    print(f"main_torch ATE on {config}: port {held:.6f} m, JAX {jate:.6f} m")
+    assert abs(held - jate) <= ATE_ATOL, (held, jate)
     logs = tmp_path / "logs" / "run"
     ts, pos, _ = evaluate.load_tum_trajectory(logs / f"{name}.txt")
     assert len(ts) >= 2 and np.isfinite(pos).all()
     pts, _ = evaluate.load_ply(logs / f"{name}.ply")
     assert len(pts) > 1000
     assert len(list((logs / "keyframes" / name).glob("*.png"))) == len(ts)
-    # eval configs subsample the clip by 2
+    # the eval configs subsample the clip by 2
     diag = (logs / "diag.jsonl").read_text().splitlines()
-    assert len(diag) == N_FRAMES // 2
+    assert len(diag) == N_FRAMES // sub
     assert "track" in out and "stats:" in out
+    rounds = system.stats["ba_rounds"]
+    assert rounds >= 1
+    assert f"ba_rounds {rounds} " in out
+    assert f"mean_ba_iters {system.ba_iters_total / rounds:.2f}" in out
+    assert "ba_calib" in out if calib else "ba_rays" in out
+    assert "the backend runs inline" not in out   # single_thread: True
+
+
+def test_main_torch_says_the_backend_runs_inline(clip, tmp_path,
+                                                 monkeypatch, capsys):
+    """``config/base.yaml`` says ``single_thread: False``: ``main_torch.py``
+    prints one line saying the backend runs inline, and runs it."""
+    _, _, d = clip
+    monkeypatch.chdir(tmp_path)
+    root = main_torch.pathlib.Path(main_torch.__file__).parent
+    (tmp_path / "config").symlink_to(root / "config")
+    rc = main_torch.main(["--dataset", str(d), "--config", "config/base.yaml",
+                          "--oracle", "--cpu", "--no-viz", "--max-frames",
+                          "6", "--save-as", "run"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    notes = [ln for ln in out.splitlines()
+             if "the backend runs inline after each keyframe" in ln]
+    assert len(notes) == 1 and "single_thread: False" in notes[0]
+    assert "ba_rounds " in out and "ba_rounds 0 " not in out
 
 
 @pytest.mark.parametrize("flag", [
     ["--int8-encoder"], ["--int8-local-head"], ["--tp", "2"],
     ["--backend-device", "0"], ["--resume-state", "s.npz"],
     ["--state-out", "s.npz"], ["--oracle-desc"], ["--oracle-retrieval"],
-    ["--viz-port", "8089"], ["--profile-blocks"], []],
+    ["--viz-port", "8089"], ["--profile-blocks"],
+    ["--retrieval-checkpoint", "r.pth"], ["--codebook", "c.pkl"], []],
     ids=lambda f: f[0] if f else "without --no-viz")
 def test_main_torch_refuses_later_slices(flag):
     """A flag whose module is a later slice exits with one line naming the
@@ -341,6 +524,9 @@ def test_main_torch_refuses_later_slices(flag):
         main_torch.main(argv)
     msg = str(e.value.code)
     assert "not ported yet" in msg and "slice" in msg and "\n" not in msg
+    if flag and flag[0] in ("--oracle-desc", "--oracle-retrieval",
+                            "--retrieval-checkpoint", "--codebook"):
+        assert "retrieval slice" in msg
 
 
 def test_main_torch_needs_a_card_without_cpu_flag(clip, tmp_path,

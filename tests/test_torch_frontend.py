@@ -1,44 +1,46 @@
-"""The ported frontend against the JAX frontend on one 6-frame clip.
+"""The ported SLAM system against the JAX one on one 6-frame clip.
 
 Both sides run the same tiny network (seeded torch init ->
 ``condition_for_tracking`` -> Flax params through the JAX package's own
-checkpoint converter) on the same 64x96 frames, once with
+checkpoint converter) on the same 64x96 frames through their
+``SLAMSystem``, the backend inline (JAX's ``single_thread``): once with
 ``config/base.yaml``'s tracking block at the reference-exact matcher and
-once with ``config/base.yaml`` as written (the production matcher; the
-``test_production_*`` tests, whose docstrings state their tolerances).  The JAX side is the frontend loop of ``pipeline.py:360-433`` written out from
-its ``InferenceEngine``, ``FrameTracker`` and ``update_pointmap``, without
-the backend.
+backend (consecutive edges through ``match_symmetric``), and once with
+``config/base.yaml`` as written (the production matcher, consecutive
+edges through the decode-free ``match_arrays_warp`` on the edge subgrid;
+the ``test_production_*`` tests, whose docstrings state their
+tolerances).
 
-Tolerances: modes and keyframe decisions must be equal.  With each side's
-own matcher, match fractions agree to 2e-3 and poses to atol 3e-3, not
-tighter: ~0.1% of the pixels get a neighbouring match on one side (7 of
-6,144 on the first tracked frame, on identical inputs).  The likely cause
-is that the JAX ``iter_proj`` is always compiled, XLA:CPU contracts
-``a*b + c`` into fused multiply-adds and PyTorch's CPU kernels do not, and
-the per-pixel LM steps (divided by a near-singular 2x2 determinant)
-amplify those last-bit differences until a match truncates to a
-neighbour.  That moves the first tracked pose by ~4e-4, and the chained
+Tolerances: modes, keyframe decisions, stats and edges must be equal.
+With each side's own matcher, match fractions agree to 2e-3 and poses to
+atol 3e-3, not tighter: ~0.1% of the pixels get a neighbouring match on
+one side (7 of 6,144 on the first tracked frame, on identical inputs).
+The likely cause is that the JAX ``iter_proj`` is always compiled, XLA:CPU
+contracts ``a*b + c`` into fused multiply-adds and PyTorch's CPU kernels do
+not, and the per-pixel LM steps (divided by a near-singular 2x2
+determinant) amplify those last-bit differences until a match truncates to
+a neighbour.  That moves the first tracked pose by ~4e-4, and the chained
 frames carry it on: the largest difference over this clip is 1.8e-3.
 A second port run takes the JAX matcher's ``idx_f2k`` and validity on
-every tracked frame in place of its own; everything else (network, fusion,
-GN solve, keyframe decisions) is the port's, and there the poses agree to
-atol 1e-4, so the looser figure is the matcher's flips and nothing else.
+every tracked frame and JAX's edge matches in the backend in place of its
+own; everything else (network, fusion, GN solve, keyframe decisions, edge
+weights, BA) is the port's, and there the poses agree to atol 1e-4, so
+the looser figure is the matcher's flips and nothing else.
 """
+
+import copy
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from mast3r_slam_tpu import frame as jfr
 from mast3r_slam_tpu.inference import InferenceEngine as JaxEngine
 from mast3r_slam_tpu.models.convert import convert_state_dict
 from mast3r_slam_tpu.models.mast3r import MASt3R as JaxMASt3R
 from mast3r_slam_tpu.models.mast3r import MASt3RConfig as JaxConfig
-from mast3r_slam_tpu.ops import lie_sim3 as jsim3
 from mast3r_slam_tpu.ops import matching as jmatch
-from mast3r_slam_tpu.tracker import FrameTracker as JaxTracker
-from mast3r_slam_tpu.tracker import TrackerConfig as JaxTrackerConfig
+from mast3r_slam_tpu.pipeline import SLAMSystem as JaxSLAMSystem
 from mast3r_slam_torch.inference import InferenceEngine
 from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
 from mast3r_slam_torch.ops.matching import MatchingConfig
@@ -56,59 +58,93 @@ SHARED_POSE_ATOL = 1e-4
 PROD_POSE_ATOL = 1e-2
 PROD_FRAC_ATOL = 3e-3
 PROD_SHARED_POSE_ATOL = 2e-4
+# after the first backend round of the production run, whose BA does not
+# converge on this scene (see test_production_frontend_poses_match), and a
+# BA round of the port against JAX's solve of the same inputs
+PROD_SHARED_BACKEND_POSE_ATOL = 1e-2
+# share of the edge matches' pixels equal to JAX's on the same inputs
+EDGE_AGREE = 0.99
+EDGE_STORE = ("idx_ii2jj", "idx_jj2ii", "valid_match_j", "valid_match_i")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops on one thread in this module, restored after: the
+    suite runs in several worker processes at once, and PyTorch's thread
+    pool in each of them then oversubscribes the cores, which slows the
+    port's many small ops by more than an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _keep_rounds(system):
+    """Record each backend round's BA inputs (arena rows and edge store, as
+    numpy) and result (the solved poses, (iterations, |dx|, ok)) in
+    ``system.rounds``, for the tests that solve a round again."""
+    system.rounds = []
+    solve_poses = system.graph.solve_poses
+
+    def keep_round(arena, residual):
+        g = system.graph
+        inputs = {k: np.array(getattr(arena, k)) for k in
+                  ("X", "C", "N", "N_updates", "T_WC", "n_size")}
+        inputs.update({k: np.array(getattr(g, k)) for k in EDGE_STORE +
+                       ("Q_ii2jj", "Q_jj2ii")},
+                      ii=g.ii.copy(), jj=g.jj.copy(), n_edges=g.n_edges)
+        res = solve_poses(arena, residual)
+        if res is not None:
+            system.rounds.append((inputs, np.array(res[1]), res[2]))
+        return res
+
+    system.graph.solve_poses = keep_round
 
 
 def _run_jax(params, cfg, frames, head_dtype=jnp.float32):
+    """The JAX package's ``SLAMSystem`` over the frames, its backend inline
+    (``single_thread``).  Returns (per-frame log with the tracker's
+    (idx_f2k, valid) of each tracked frame under "match", keyframe poses,
+    the system)."""
+    cfg = copy.deepcopy(cfg)
+    cfg["single_thread"] = True
     model = JaxMASt3R(JaxConfig.tiny(head_dtype=head_dtype))
     engine = JaxEngine(model, params, (H, W),
                        match_cfg=jmatch.MatchingConfig.from_dict(
                            cfg["matching"]))
-    tracker = JaxTracker(engine, JaxTrackerConfig.from_config(cfg))
-    fmode = jfr.FilteringMode.from_str(cfg["tracking"]["filtering_mode"])
-    arena = jfr.make_arena(N_FRAMES, H, W, engine.n_patches, engine.feat_dim)
-    mode, last_T, log = jfr.Mode.INIT, jsim3.identity(), []
+    system = JaxSLAMSystem(cfg, engine, (H, W), buffer=N_FRAMES)
+    matches = []
+    track = system.tracker.track
+
+    def spy(fr, kf):
+        out = track(fr, kf)
+        matches.append(None if out[4] is None else
+                       (np.array(out[4][0]), np.array(out[4][1])))
+        return out
+
+    system.tracker.track = spy
+    _keep_rounds(system)
+    log = []
     for i, img in enumerate(frames):
-        if mode == jfr.Mode.RELOC:
+        if system.mode.name == "RELOC":
             break
-        normed = img.astype(np.float32) * (1.0 / 127.5) - 1.0
-        feat, pos = engine.encode(jnp.asarray(normed)[None])
-        fr = jfr.Frame(
-            frame_id=jnp.asarray(i, jnp.int32), uimg=jnp.asarray(img),
-            T_WC=last_T, X_canon=jnp.zeros((H * W, 3)),
-            C=jnp.zeros((H * W, 1)), feat=feat[0],
-            pos=pos[0].astype(jnp.int32), N=jnp.zeros((), jnp.int32),
-            N_updates=jnp.zeros((), jnp.int32), score=jnp.zeros(()))
-        info = {"mode": mode.name, "new_kf": False}
-        if mode == jfr.Mode.INIT:
-            X, C = engine.inference_mono(fr.feat[None], fr.pos[None])
-            fr = jfr.update_pointmap(fr, X[0], C[0], fmode, True)
-            arena = jfr.arena_append(arena, fr)
-            mode, last_T = jfr.Mode.TRACKING, fr.T_WC
-        else:
-            last = int(arena.n_size) - 1
-            kf = jfr.arena_get(arena, last)
-            new_kf, fr, kf, try_reloc, reuse = tracker.track(fr, kf)
-            info["match_frac"] = tracker.last_diag["match_frac"]
-            if reuse is not None:
-                info["match"] = (np.array(reuse[0]), np.array(reuse[1]))
-            if try_reloc:
-                mode = jfr.Mode.RELOC
-                info["mode"] = "TRACKING->RELOC"
-            else:
-                arena = jfr.arena_set(arena, last, kf)
-                last_T = fr.T_WC
-                if new_kf:
-                    arena = jfr.arena_append(arena, fr)
-                    info["new_kf"] = True
-        info["T_WC"] = np.asarray(last_T)
+        n_match = len(matches)
+        info = system.process_frame(i, img)
+        if len(matches) > n_match and matches[-1] is not None:
+            info["match"] = matches[-1]
+        info["T_WC"] = np.asarray(system.last_T_WC)
         log.append(info)
-    return log, np.asarray(arena.T_WC[:int(arena.n_size)])
+    system.terminate()
+    return log, np.asarray(system.arena.T_WC[:int(system.arena.n_size)]), \
+        system
 
 
-def _run_port(sd, cfg, frames, matches=None, head_dtype=torch.float32):
-    """The port's frontend; with ``matches`` (one (idx_f2k, valid) pair per
-    tracked frame) the matcher's idx_f2k and validity are replaced by
-    those."""
+def _run_port(sd, cfg, frames, matches=None, edges=None,
+              head_dtype=torch.float32):
+    """The port's ``SLAMSystem``; with ``matches`` (one (idx_f2k, valid)
+    pair per tracked frame) the tracker's matcher idx_f2k and validity are
+    replaced by those, and with ``edges`` (the JAX graph's edge store) the
+    backend's edge matches (warped or symmetric) by JAX's, edge by edge."""
     model = MASt3R(MASt3RConfig.tiny(head_dtype=head_dtype))
     model.load_state_dict(sd)
     engine = InferenceEngine(model, (H, W),
@@ -124,7 +160,34 @@ def _run_port(sd, cfg, frames, matches=None, head_dtype=torch.float32):
                     torch.from_numpy(valid_j).to(valid.dtype), *rest)
 
         engine.match_asymmetric = shared
+    if edges is not None:
+        given_e = iter(range(len(edges["idx_ii2jj"])))
+        sub = engine.match_cfg.edge_query_subsample == 2
+
+        def jax_edge(name):
+            A = edges[name][e_now[0]]
+            if sub:
+                A = A.reshape(H, W)[::2, ::2].reshape(-1)
+            A = torch.from_numpy(A)[None]
+            return A[..., None] if name.startswith("valid") else A.long()
+
+        e_now = [None]
+        own_sym = engine.match_symmetric
+
+        def warp(*args):
+            e_now[0] = next(given_e)
+            return jax_edge("idx_ii2jj"), jax_edge("valid_match_j")
+
+        def sym(*args):
+            Qs = own_sym(*args)[4:]
+            e_now[0] = next(given_e)
+            return (jax_edge("idx_ii2jj"), jax_edge("idx_jj2ii"),
+                    jax_edge("valid_match_j"), jax_edge("valid_match_i"),
+                    *Qs)
+
+        engine.match_arrays_warp, engine.match_symmetric = warp, sym
     system = SLAMSystem(cfg, engine, (H, W), buffer=N_FRAMES, device="cpu")
+    _keep_rounds(system)
     log = []
     for i, img in enumerate(frames):
         if system.mode.name == "RELOC":
@@ -132,7 +195,8 @@ def _run_port(sd, cfg, frames, matches=None, head_dtype=torch.float32):
         info = system.process_frame(i, img)
         info["T_WC"] = system.last_T_WC.numpy()
         log.append(info)
-    return log, system.arena.T_WC[:system.arena.n_size].numpy()
+    system.terminate()
+    return log, system.arena.T_WC[:system.arena.n_size].numpy(), system
 
 
 def _clip_inputs():
@@ -149,21 +213,27 @@ def _three_runs(cfg):
     sd, params, frames = _clip_inputs()
     jax_run = _run_jax(params, cfg, frames)
     matches = [s["match"] for s in jax_run[0] if "match" in s]
+    g = jax_run[2].graph
+    edges = {k: np.asarray(getattr(g, k))[:g.n_edges] for k in EDGE_STORE}
     return (jax_run, _run_port(sd, cfg, frames),
-            _run_port(sd, cfg, frames, matches))
+            _run_port(sd, cfg, frames, matches, edges))
 
 
 @pytest.fixture(scope="module")
 def runs():
-    """The production tracking block at the reference-exact matcher."""
-    return _three_runs(merge_config(
-        load_config("config/base.yaml"),
-        {"matching": REFERENCE_EXACT_OVERRIDES["matching"]}))
+    """The production tracking block with the reference-exact matcher and
+    backend (consecutive edges through ``match_symmetric``)."""
+    cfg = merge_config(load_config("config/base.yaml"),
+                       {"matching": REFERENCE_EXACT_OVERRIDES["matching"],
+                        "local_opt": REFERENCE_EXACT_OVERRIDES["local_opt"]})
+    assert not cfg["local_opt"]["reuse_track_matches"]
+    return _three_runs(cfg)
 
 
 @pytest.fixture(scope="module")
 def production_runs():
-    """``config/base.yaml`` as written."""
+    """``config/base.yaml`` as written (consecutive edges through
+    ``match_arrays_warp`` on the edge subgrid)."""
     cfg = load_config("config/base.yaml")
     assert cfg["matching"]["coarse_subsample"] == 2
     return _three_runs(cfg)
@@ -172,21 +242,21 @@ def production_runs():
 def test_frontend_tracks_the_clip(runs):
     """The clip is trackable, so the comparison covers TRACKING frames and
     keyframe decisions, not only INIT."""
-    (jlog, _), (tlog, _), _ = runs
+    (jlog, _, _), (tlog, _, _), _ = runs
     assert len(tlog) == N_FRAMES
     assert all(s["mode"] == "TRACKING" for s in tlog[1:])
     assert any(s["new_kf"] for s in tlog)
 
 
 def test_frontend_modes_and_keyframes_match(runs):
-    (jlog, jkf), (tlog, tkf), _ = runs
+    (jlog, jkf, _), (tlog, tkf, _), _ = runs
     assert [s["mode"] for s in tlog] == [s["mode"] for s in jlog]
     assert [s["new_kf"] for s in tlog] == [s["new_kf"] for s in jlog]
     assert tkf.shape == jkf.shape
 
 
 def test_frontend_poses_match(runs):
-    (jlog, jkf), (tlog, tkf), _ = runs
+    (jlog, jkf, _), (tlog, tkf, _), _ = runs
     for js, ts in zip(jlog, tlog):
         np.testing.assert_allclose(ts["T_WC"], js["T_WC"], atol=POSE_ATOL,
                                    rtol=0)
@@ -197,9 +267,9 @@ def test_frontend_poses_match(runs):
 
 def test_frontend_poses_match_with_shared_matches(runs):
     """With the JAX matcher's matches the port agrees at atol 1e-4 (the
-    largest difference over this clip is ~1.1e-5) and gates the same
-    pixels."""
-    (jlog, jkf), _, (slog, skf) = runs
+    largest difference over this clip is 1.8e-5, 1.5e-5 on the keyframes
+    after the BA round) and gates the same pixels."""
+    (jlog, jkf, _), _, (slog, skf, _) = runs
     assert len(slog) == len(jlog) == N_FRAMES
     assert [s["mode"] for s in slog] == [s["mode"] for s in jlog]
     assert [s["new_kf"] for s in slog] == [s["new_kf"] for s in jlog]
@@ -214,7 +284,7 @@ def test_frontend_poses_match_with_shared_matches(runs):
 def test_production_frontend_tracks_and_decides_like_jax(production_runs):
     """At the production matcher the clip tracks on every frame, and the
     port makes the JAX frontend's mode and keyframe decisions."""
-    (jlog, jkf), (tlog, tkf), _ = production_runs
+    (jlog, jkf, _), (tlog, tkf, _), _ = production_runs
     assert len(tlog) == len(jlog) == N_FRAMES
     assert all(s["mode"] == "TRACKING" for s in tlog[1:])
     assert [s["mode"] for s in tlog] == [s["mode"] for s in jlog]
@@ -222,37 +292,218 @@ def test_production_frontend_tracks_and_decides_like_jax(production_runs):
     assert tkf.shape == jkf.shape
 
 
+def _first_round(log):
+    """Index of the first frame that made a keyframe: its backend round
+    (the first with an edge) runs before the next frame, so the frames up
+    to it are tracked against map poses no BA has touched."""
+    return [s["new_kf"] for s in log].index(True)
+
+
+def _rounds_against_jax(system, atol):
+    """Each backend round of the port's ``system`` solved again by the JAX
+    package's ``solve_poses`` on the port's own inputs (arena rows, edge
+    store): the port's poses within ``atol``.  Returns the largest
+    difference of each round."""
+    cfg = load_config("config/base.yaml")
+    assert system.rounds
+    diffs = []
+    for inputs, T_port, _ in system.rounds:
+        diffs.append(np.abs(_solve_round("jax", inputs, cfg) - T_port).max())
+        assert diffs[-1] <= atol, diffs
+    return diffs
+
+
 def test_production_frontend_poses_match(production_runs):
-    """Each side's own production matcher: match fractions to 3e-3 and
-    poses to atol 1e-2, looser than the reference-exact run's 2e-3 and
-    3e-3.  The LM runs on the quarter grid and its positions are
-    interpolated twice, so one LM position that truncates to the
-    neighbouring pixel on one side moves 16 of the 6,144 pixels (measured:
-    match fraction 0.4160 against 0.4186 on the two keyframe frames), and
-    the radius-1 final pass does not pull them back; on this random-weight
-    scene (poses with scale 0.17 and |t| 1.5 after five frames) that moves
-    a pose by up to 8.6e-3."""
-    (jlog, jkf), (tlog, tkf), _ = production_runs
-    for js, ts in zip(jlog, tlog):
-        np.testing.assert_allclose(ts["T_WC"], js["T_WC"],
-                                   atol=PROD_POSE_ATOL, rtol=0)
+    """Each side's own production matcher: match fractions to 3e-3 and,
+    up to the first backend round, poses to atol 1e-2, looser than the
+    reference-exact run's 2e-3 and 3e-3.  The LM runs on the quarter grid
+    and its positions are interpolated twice, so one LM position that
+    truncates to the neighbouring pixel on one side moves 16 of the 6,144
+    pixels (measured: match fraction 0.4160 against 0.4186 on the two
+    keyframe frames), and the radius-1 final pass does not pull them back;
+    on this random-weight scene (poses with scale 0.17 and |t| 1.5 after
+    five frames) that moves a pose by up to 8.6e-3.
+
+    After the first round the two runs are not compared pose for pose.
+    Their BA rounds start from different inputs: the keyframe poses 5.4e-3
+    apart (the flips above), and so the pose-warped edge's indices equal
+    on only 95% of the pixels (99.4% on identical inputs,
+    ``test_edge_match_agrees_with_jax``).  On this scene the BA does not
+    converge (|dx| 0.57 in its tenth and last iteration, on both sides),
+    and such a solve is chaotic: JAX's own solve moves by 8.2e-2 with the
+    port's edge matches in place of its own, by 4.7e-2 with the port's
+    poses, and by 6.9e-3 with its edge weights two ulps apart; the port's
+    run ends 6.3e-2 from JAX's.  So each of the port's rounds is held to
+    the JAX package's solve of the port's own inputs instead, at atol
+    ``PROD_SHARED_BACKEND_POSE_ATOL`` (measured 3.7e-3 and 1.3e-3; ``-s``
+    prints them); the keyframe poses are those rounds' results, and the
+    keyframe decisions and edges are held equal by
+    ``test_production_frontend_tracks_and_decides_like_jax`` and
+    ``test_backend_rounds_and_edges_match_jax``."""
+    (jlog, _, _), (tlog, _, tsys), _ = production_runs
+    k = _first_round(jlog)
+    for f, (js, ts) in enumerate(zip(jlog, tlog)):
+        if f <= k:
+            np.testing.assert_allclose(ts["T_WC"], js["T_WC"], rtol=0,
+                                       atol=PROD_POSE_ATOL)
         if "match_frac" in js:
             assert abs(ts["match_frac"] - js["match_frac"]) <= PROD_FRAC_ATOL
-    np.testing.assert_allclose(tkf, jkf, atol=PROD_POSE_ATOL, rtol=0)
+    diffs = _rounds_against_jax(tsys, PROD_SHARED_BACKEND_POSE_ATOL)
+    print(f"production rounds, port against JAX on the port's inputs: "
+          f"{[f'{d:.3g}' for d in diffs]}")
 
 
 def test_production_frontend_poses_match_with_shared_matches(
         production_runs):
-    """With the JAX production matcher's matches the port gates the same
-    pixels and agrees at atol 2e-4 (measured 1.25e-4, against 1.1e-5 at the
-    reference-exact matcher: the rougher radius-1 matches leave the GN
+    """With the JAX production matcher's matches (the tracker's and the
+    backend's edges) the port gates the same pixels and, up to the first
+    backend round, agrees at atol 2e-4 (measured 1.19e-4, against 1.0e-5 at
+    the reference-exact matcher: the rougher radius-1 matches leave the GN
     system of this scene worse conditioned, so f32 summation order shows
-    more)."""
-    (jlog, jkf), _, (slog, skf) = production_runs
+    more).  After it, and for the keyframes, atol
+    ``PROD_SHARED_BACKEND_POSE_ATOL`` (measured 1.9e-4; 1.2e-3 on the
+    keyframes): the non-converging BA of
+    ``test_production_frontend_poses_match`` gives 3.7e-3 and 2.7e-3 in its
+    two rounds on identical inputs (JAX's round inputs through the port's
+    ``solve_poses``), within the 6.9e-3 of JAX against itself."""
+    (jlog, jkf, _), _, (slog, skf, _) = production_runs
     assert [s["new_kf"] for s in slog] == [s["new_kf"] for s in jlog]
-    for js, ss in zip(jlog, slog):
-        np.testing.assert_allclose(ss["T_WC"], js["T_WC"],
-                                   atol=PROD_SHARED_POSE_ATOL, rtol=0)
+    k = _first_round(jlog)
+    for f, (js, ss) in enumerate(zip(jlog, slog)):
+        np.testing.assert_allclose(
+            ss["T_WC"], js["T_WC"], rtol=0,
+            atol=PROD_SHARED_POSE_ATOL if f <= k
+            else PROD_SHARED_BACKEND_POSE_ATOL)
         if "match_frac" in js:
             assert abs(ss["match_frac"] - js["match_frac"]) < 0.5 / (H * W)
-    np.testing.assert_allclose(skf, jkf, atol=PROD_SHARED_POSE_ATOL, rtol=0)
+    np.testing.assert_allclose(skf, jkf, atol=PROD_SHARED_BACKEND_POSE_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("which", ["runs", "production_runs"])
+def test_backend_rounds_and_edges_match_jax(request, which):
+    """The backend runs on both sides: the same stats (keyframes, BA
+    rounds), the same edges (ii, jj) and BA iteration total, with the
+    port's own matcher and with JAX's matches.  With JAX's edge matches
+    the port stores JAX's indices and masks bit for bit (its weights come
+    from its own decode: the tracker's Q under the warp, relative 1e-5;
+    measured <= 5.5e-7)."""
+    (_, _, js), (_, _, ts), (_, _, ss) = request.getfixturevalue(which)
+    jg = js.graph
+    assert js.stats["ba_rounds"] >= 1 and jg.n_edges >= 1
+    for system in (ts, ss):
+        g = system.graph
+        assert system.stats == js.stats
+        assert system.ba_iters_total == js.ba_iters_total
+        assert g.n_edges == jg.n_edges
+        np.testing.assert_array_equal(g.ii[:g.n_edges], jg.ii[:jg.n_edges])
+        np.testing.assert_array_equal(g.jj[:g.n_edges], jg.jj[:jg.n_edges])
+    n = jg.n_edges
+    for name in EDGE_STORE:
+        np.testing.assert_array_equal(
+            getattr(ss.graph, name)[:n].numpy(),
+            np.asarray(getattr(jg, name))[:n], err_msg=name)
+    for name in ("Q_ii2jj", "Q_jj2ii"):
+        np.testing.assert_allclose(getattr(ss.graph, name)[:n].numpy(),
+                                   np.asarray(getattr(jg, name))[:n],
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["runs", "production_runs"],
+                         ids=["symmetric", "warp"])
+def test_edge_match_agrees_with_jax(request, which):
+    """The backend's edge match on the same inputs, the JAX run's keyframes
+    (pointmaps, poses, encoder tokens): ``match_symmetric`` (decode and
+    match at the reference-exact matcher, both directions) and
+    ``match_arrays_warp`` (the production matcher on the edge subgrid, with
+    seeded q8 tables).  Indices and validity equal on at least 99% of the
+    pixels (measured >= 99.38%, the LM last-bit drift of ROADMAP C); the
+    symmetric decode's confidences within relative 1e-4 (f32 network,
+    measured <= 5.5e-7)."""
+    (_, _, js), (_, _, ts), _ = request.getfixturevalue(which)
+    ja, ta = js.arena, ts.arena
+    jeng, teng = js.engine, ts.engine
+    if which == "runs":
+        jout = jeng.match_symmetric(ja.feat[0:1], ja.pos[0:1], ja.feat[1:2],
+                                    ja.pos[1:2])
+        tout = teng.match_symmetric(
+            torch.from_numpy(np.asarray(ja.feat[0:1])), ta.pos[0:1],
+            torch.from_numpy(np.asarray(ja.feat[1:2])), ta.pos[1:2])
+        for q in range(4, 8):
+            np.testing.assert_allclose(tout[q].numpy(), np.asarray(jout[q]),
+                                       rtol=1e-4, atol=1e-4)
+        pairs = ((tout[0], jout[0]), (tout[1], jout[1]),
+                 (tout[2], jout[2]), (tout[3], jout[3]))
+    else:
+        f = JaxConfig.tiny().local_feat_dim
+        rng = np.random.default_rng(7)
+        d8 = [rng.integers(-127, 128, (1, H * W, f)).astype(np.int8)
+              for _ in range(2)]
+        X, T = np.asarray(ja.X), np.asarray(ja.T_WC)
+        jout = jeng.match_arrays_warp(ja.X, ja.T_WC, 0, 1, jnp.asarray(d8[0]),
+                                      jnp.asarray(d8[1]), (H, W))
+        tout = teng.match_arrays_warp(torch.from_numpy(X),
+                                      torch.from_numpy(T), 0, 1,
+                                      torch.from_numpy(d8[0]),
+                                      torch.from_numpy(d8[1]), (H, W))
+        assert tout[0].shape == (1, (H // 2) * (W // 2))
+        pairs = ((tout[0], jout[0]), (tout[1], jout[1]))
+    for t, j in pairs:
+        t, j = t.numpy(), np.asarray(j)
+        assert t.shape == j.shape
+        assert (t == j).mean() >= EDGE_AGREE, (t == j).mean()
+
+
+def _solve_round(pkg, inputs, cfg, Q_scale=1.0):
+    """``solve_poses`` of a fresh factor graph of the JAX package
+    (``pkg="jax"``) or the port on one recorded round's inputs, the edge
+    weights scaled by ``Q_scale``.  Returns the solved poses."""
+    n = inputs["n_edges"]
+    store = {k: inputs[k] for k in EDGE_STORE}
+    store.update({k: (inputs[k] * np.float32(Q_scale)).astype(np.float32)
+                  for k in ("Q_ii2jj", "Q_jj2ii")})
+    if pkg == "jax":
+        from mast3r_slam_tpu import frame as jfr
+        from mast3r_slam_tpu import global_opt as jgo
+
+        g = jgo.FactorGraph(None, H * W, cfg)
+        arena = jfr.make_arena(N_FRAMES, H, W, 1, 1).replace(
+            **{k: jnp.asarray(inputs[k]) for k in
+               ("X", "C", "N", "N_updates", "T_WC", "n_size")})
+        put = jnp.asarray
+    else:
+        from mast3r_slam_torch import frame as tfr
+        from mast3r_slam_torch import global_opt as tgo
+
+        g = tgo.FactorGraph(None, H * W, cfg, store_device="cpu")
+        arena = tfr.make_arena(N_FRAMES, H, W, 1, 1, "cpu")
+        for k in ("X", "C", "N", "N_updates", "T_WC"):
+            getattr(arena, k).copy_(torch.from_numpy(inputs[k]))
+        arena.n_size = int(inputs["n_size"])
+        put = torch.from_numpy
+    for k, v in store.items():
+        setattr(g, k, put(np.ascontiguousarray(v)))
+    g.ii[:n], g.jj[:n], g.n_edges = inputs["ii"][:n], inputs["jj"][:n], n
+    return np.asarray(g.solve_poses(arena, "ray")[1])
+
+
+def test_production_ba_rounds_on_identical_inputs(production_runs):
+    """The production clip's BA rounds, each on JAX's inputs through both
+    packages' ``solve_poses``: the port gives JAX's poses within atol
+    ``PROD_SHARED_BACKEND_POSE_ATOL`` (measured 3.7e-3 and 2.7e-3), while
+    JAX against itself with the edge weights moved by two ulps
+    (x (1 + 2^-22)) moves by up to 6.9e-3: the solves do not converge
+    and are chaotic, which is what the backend tolerances of the
+    production tests account for.  ``-s`` prints the figures."""
+    (_, _, js), _, _ = production_runs
+    cfg = load_config("config/base.yaml")
+    moved = []
+    for inputs, T_jax, stats in js.rounds:
+        assert stats[0] == cfg["local_opt"]["max_iters"]  # not converged
+        port = np.abs(_solve_round("port", inputs, cfg) - T_jax).max()
+        moved.append(np.abs(_solve_round("jax", inputs, cfg, 1 + 2.0 ** -22)
+                            - T_jax).max())
+        print(f"BA round: port against JAX {port:.3g}, JAX with weights two "
+              f"ulps apart {moved[-1]:.3g}")
+        assert port <= PROD_SHARED_BACKEND_POSE_ATOL
+    assert len(moved) == 2 and max(moved) > PROD_SHARED_BACKEND_POSE_ATOL / 2
