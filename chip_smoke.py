@@ -23,9 +23,19 @@ call.  Then it drives the port as a user would:
 * the same drive with ``reference_exact: true`` (the full-resolution
   matcher, the per-component Huber solve, consecutive edges through the
   symmetric decode + match);
+* ``main_torch.run`` again at the same width and configuration over a loop
+  clip (out and back to the first image) with an ASMK retrieval database
+  built by ``RetrievalDatabase.from_checkpoint`` from a forged head and a
+  forged 65,536-word codebook: loop-closure proposals become
+  ``desc_global`` edges matched from the stored q8 tables (kernel C packs
+  4 tables a pair), rejected pairs go through the symmetric decode; then
+  one pair's tables through ``match_desc_global`` on the card against the
+  CPU, bitwise;
 * the oracle harness (a rendered 16-frame clip with known poses),
   uncalibrated and calibrated, with the backend, scored by ATE and held
-  against the same drive on the CPU;
+  against the same drive on the CPU; and the 24-frame oracle loop clip
+  with the oracle's q8 descriptors and retrieval database, on the card
+  against the CPU;
 * a stage breakdown of one tracking step and of the backend: a round's
   time, BA iterations, kernels per BA iteration, and the frame time of a
   keyframe against a plain tracked frame.
@@ -60,6 +70,12 @@ ATTN_TOL = {"bf16": 2e-2, "f32": 1e-4}   # max abs error on N(0,1) inputs
 ATTN_RAGGED = (1, 77, 768, 769)          # Nq and Nk of the strided bf16 check
 GN_POSE_ATOL = 1e-5                      # gn_solve against the plain loop
 IMG_HW = (384, 512)
+# the retrieval drive's loop clip: frames out (then back to the first, in
+# reverse), shift and texture (4 keyframes, 3 proposals in 2 desc_global
+# batches on an H100), and the forged codebook's size (the published
+# codebook's 64k words)
+N_FRAMES_LOOP_OUT, LOOP_SHIFT, LOOP_TEXTURE = 9, 48, 0.7
+CODEBOOK_WORDS = 65536
 # the drive's clip: frames, pixels between consecutive frames, and the share
 # of blurred noise in its image (testing.make_clip)
 N_FRAMES, CLIP_SHIFT, CLIP_TEXTURE = 6, 32, 0.5
@@ -401,6 +417,21 @@ def pack_tables(cfg, hw_shape):
     return tables
 
 
+def desc_global_tables(cfg, hw_shape):
+    """The packed tables one direction of ``match_desc_global`` builds
+    (``ops.matching.match_desc_global``): the refine walk at radius 2,
+    dilation 2 then 1, five probe columns a row, int8 q8 descriptors."""
+    from mast3r_slam_torch.ops.pack import _offsets
+
+    h, w = hw_shape
+    if cfg.coarse_bits != 8:
+        raise SystemExit("desc_global_tables: nibble tables are not the "
+                         "production path")
+    return [(f"desc_global refine d={d} r=2 u_pack=5", "int8", 24,
+             tuple(_offsets(5, d, 2 * d, w, 5)), -2 * d, h * w + 4 * d)
+            for d in (2, 1)]
+
+
 def check_pack(match_cfg, peak_bw, card):
     """Kernel C against ``pack_rows_plain``, bitwise (it is a copy): every
     table of the production matcher at 384x512 in int8, f16, bf16 and f32,
@@ -436,7 +467,8 @@ def check_pack(match_cfg, peak_bw, card):
         return got
 
     tables = pack_tables(match_cfg, IMG_HW)
-    for label, _, fdim, offs, row0, n_rows in tables:
+    desc_tables = desc_global_tables(match_cfg, IMG_HW)
+    for label, _, fdim, offs, row0, n_rows in tables + desc_tables:
         for dt in dtypes:
             same(table(dt, 1, n_rows + 2 * row0, fdim), offs, row0, n_rows,
                  f"{label} {dt}")
@@ -482,47 +514,60 @@ def check_pack(match_cfg, peak_bw, card):
             raise SystemExit("pack kernel disagrees with its plain version "
                              "at an odd alignment")
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    per_table = []
-    for label, dt, fdim, offs, row0, n_rows in tables:
-        hw = n_rows + 2 * row0
-        x = table(dt, 1, hw, fdim)
-        lo = min(0, row0 + min(offs))
-        hi = max(hw, row0 + n_rows + max(offs))
-        padded = F.pad(x, (0, 0, -lo, hi - hw))
-        index = (torch.arange(n_rows, device="cuda")[:, None] + (row0 - lo)
-                 + torch.tensor(offs, device="cuda")[None, :])
-        lib = padded[:, index].reshape(1, n_rows, -1)
-        if not torch.equal(lib, pack.pack_rows(x, offs, row0, n_rows)):
-            raise SystemExit("the library gather computes another table")
-        del lib
-        nbytes = x.element_size() * fdim * (hw + n_rows * len(offs))
-        t = {
-            "ms": time_ms(lambda: pack.pack_rows(x, offs, row0, n_rows),
-                          reps=100),
-            "plain_ms": time_ms(
-                lambda: pack.pack_rows_plain(x, offs, row0, n_rows), reps=20),
-            "library_ms": time_ms(lambda: padded[:, index], reps=20),
-            "bound_ms": nbytes / peak_bw * 1e3,
-        }
-        plan = pack.tile_plan(tuple(offs), fdim * x.element_size(), n_rows)
-        print(f"pack {label} ({hw}, {fdim}) {dt} K={len(offs)} -> "
-              f"{n_rows} x {len(offs) * fdim * x.element_size()} B "
-              f"({plan.rows}-row tiles, {len(plan.span_lo)} spans, "
-              f"{plan.smem} B staged): kernel {t['ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.5f} ms (bytes), "
-              f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound; gather "
-              f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
-              f"[{card}]")
-        per_table.append(dict(label=label, **t))
-        for key in total:
-            total[key] += t[key]
-    print(f"pack, the {len(tables)} tables of one match: kernel "
-          f"{total['ms']:.4f} ms, bound {total['bound_ms']:.5f} ms, "
-          f"{100 * total['bound_ms'] / total['ms']:.1f}% of bound; gather "
-          f"{total['library_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms "
-          f"[{card}]")
+    def time_tables(tables, what):
+        """Kernel, plain version and one advanced-index gather of each
+        table, beside its bytes bound; their sums."""
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                 "bound_ms": 0.0}
+        per_table = []
+        for label, dt, fdim, offs, row0, n_rows in tables:
+            hw = n_rows + 2 * row0
+            x = table(dt, 1, hw, fdim)
+            lo = min(0, row0 + min(offs))
+            hi = max(hw, row0 + n_rows + max(offs))
+            padded = F.pad(x, (0, 0, -lo, hi - hw))
+            index = (torch.arange(n_rows, device="cuda")[:, None]
+                     + (row0 - lo)
+                     + torch.tensor(offs, device="cuda")[None, :])
+            lib = padded[:, index].reshape(1, n_rows, -1)
+            if not torch.equal(lib, pack.pack_rows(x, offs, row0, n_rows)):
+                raise SystemExit("the library gather computes another "
+                                 "table")
+            del lib
+            nbytes = x.element_size() * fdim * (hw + n_rows * len(offs))
+            t = {
+                "ms": time_ms(
+                    lambda: pack.pack_rows(x, offs, row0, n_rows), reps=100),
+                "plain_ms": time_ms(
+                    lambda: pack.pack_rows_plain(x, offs, row0, n_rows),
+                    reps=20),
+                "library_ms": time_ms(lambda: padded[:, index], reps=20),
+                "bound_ms": nbytes / peak_bw * 1e3,
+            }
+            plan = pack.tile_plan(tuple(offs), fdim * x.element_size(),
+                                  n_rows)
+            print(f"pack {label} ({hw}, {fdim}) {dt} K={len(offs)} -> "
+                  f"{n_rows} x {len(offs) * fdim * x.element_size()} B "
+                  f"({plan.rows}-row tiles, {len(plan.span_lo)} spans, "
+                  f"{plan.smem} B staged): kernel {t['ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.5f} ms (bytes), "
+                  f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound; gather "
+                  f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
+                  f"[{card}]")
+            per_table.append(dict(label=label, **t))
+            for key in total:
+                total[key] += t[key]
+        print(f"pack, the {len(tables)} tables of {what}: kernel "
+              f"{total['ms']:.4f} ms, bound {total['bound_ms']:.5f} ms, "
+              f"{100 * total['bound_ms'] / total['ms']:.1f}% of bound; "
+              f"gather {total['library_ms']:.4f} ms, plain "
+              f"{total['plain_ms']:.4f} ms [{card}]")
+        return total, per_table
+
+    total, per_table = time_tables(tables, "one match")
+    desc_total, _ = time_tables(desc_tables, "one desc_global direction")
     total.update(bound_by="bytes", max_abs_err=0.0, tables=per_table,
+                 desc_global_direction=desc_total,
                  host_us=pack_host_us(match_cfg, card))
     return total
 
@@ -1207,6 +1252,359 @@ def breakdown(system, img, card, label, full=True):
     return out
 
 
+def forge_retrieval_files(tmp, seed, dim):
+    """The retrieval database's two files, forged from ``seed``: a head in
+    the published state-dict layout (``RetrievalParams.random``, ``dim`` ->
+    ``dim``, ViT-L's 1024, weights stored (out, in)) and a codebook pickle
+    of ``CODEBOOK_WORDS`` random ``dim``-d words in the published
+    ``Codebook.state_dict()`` layout.  Returns the two paths."""
+    import pickle
+
+    import torch
+
+    from mast3r_slam_torch.retrieval.model import RetrievalParams
+
+    p = RetrievalParams.random(dim, (dim,), seed=seed)
+    head = f"{tmp}/retrieval_trainingfree.pth"
+    torch.save({"model": {
+        "projector.0.weight": p.proj_weights[0][0].T.contiguous(),
+        "projector.0.bias": p.proj_weights[0][1],
+        "prewhiten.m": p.prewhiten_m, "prewhiten.p": p.prewhiten_p,
+        "postwhiten.m": p.postwhiten_m, "postwhiten.p": p.postwhiten_p}},
+        head)
+    cent = np.random.default_rng(seed).standard_normal(
+        (CODEBOOK_WORDS, dim), dtype=np.float32)
+    codebook = f"{tmp}/codebook.pkl"
+    with open(codebook, "wb") as f:
+        pickle.dump({"type": "Codebook", "params": {"size": "64k"},
+                     "state": {"centroids": cent}}, f, protocol=4)
+    return head, codebook
+
+
+class _Spy:
+    """Replaces ``owner.name`` by a wrapper that calls ``hook(fn, *args)``
+    with the original ``fn``, until ``restore``."""
+
+    def __init__(self, owner, name, hook):
+        self.owner, self.name = owner, name
+        self.own = name in vars(owner)
+        self.fn = getattr(owner, name)
+
+        def call(*a, **kw):
+            return hook(self.fn, *a, **kw)
+
+        setattr(owner, name, call)
+
+    def restore(self):
+        if self.own:
+            setattr(self.owner, self.name, self.fn)
+        else:
+            delattr(self.owner, self.name)
+
+
+def cuda_timed(out):
+    """A ``_Spy`` hook that appends each call's time between two CUDA
+    events (ms) to ``out``."""
+    import torch
+
+    def hook(fn, *a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn(*a, **kw)
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop))
+        return res
+
+    return hook
+
+
+def drive_retrieval(engine, mcfg, cfg, frames, db, card):
+    """``main_torch.run`` over a loop clip (out and back, so the last
+    keyframe sees the first frame's image again) with ``config/base.yaml``
+    unmodified and the retrieval database ``db``: the backend's loop-closure
+    proposals become ``desc_global`` edges, matched from the keyframes'
+    stored q8 tables, and the pairs whose gates reject them go through the
+    symmetric decode.  Every kernel's count is set to 0 just before the
+    loop and read just after; they must be what the drive's frames, edges
+    and desc_global pairs imply (4 packs per desc_global pair).  The drive
+    must make 3 keyframes, a retrieval proposal and a desc_global batch,
+    and every desc_global pair must be accepted or retried.  Prints per
+    keyframe the time of ``prep_features`` + ``quantize`` (CUDA events) and
+    of the host IVF query, and per desc_global pair that of
+    ``match_desc_global`` and its coarse argmax (CUDA events)."""
+    import torch
+
+    import main_torch
+    from mast3r_slam_torch.ops import gn
+    from mast3r_slam_torch.ops import matching as matching_ops
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pack import pack_rows
+    from mast3r_slam_torch.pipeline import SLAMSystem
+    from mast3r_slam_torch.testing import ClipDataset
+
+    engine.match_cfg = matching_ops.MatchingConfig.from_dict(cfg["matching"])
+    system = SLAMSystem(cfg, engine, IMG_HW, buffer=len(frames),
+                        retrieval=db, device="cuda")
+    g = system.graph
+    feat_ms, quant_ms, ivf_ms, mdg_ms, coarse_ms = [], [], [], [], []
+    pairs, retried, sym_pairs, warped, frame_ms = [], [], [], [], []
+
+    def ivf_timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        ivf_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def mdg(fn, D8_i, D8_j, *a, **kw):
+        ptr = {t.data_ptr(): r for r, (t, _) in g.desc_store.items()}
+        pairs.append((ptr[D8_i.data_ptr()], ptr[D8_j.data_ptr()]))
+        return cuda_timed(mdg_ms)(fn, D8_i, D8_j, *a, **kw)
+
+    def sym(fn, arena, ii, jj, *a, **kw):
+        retried.extend(zip(map(int, ii), map(int, jj)))
+        return fn(arena, ii, jj, *a, **kw)
+
+    def frame_timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = fn(*a, **kw)
+        torch.cuda.synchronize()
+        frame_ms.append(((time.perf_counter() - t0) * 1e3, info["new_kf"]))
+        return info
+
+    def count(out, batch):
+        def hook(fn, *a, **kw):
+            out.append(a[0].shape[0] if batch else 1)
+            return fn(*a, **kw)
+        return hook
+
+    spies = [_Spy(db, "_features", cuda_timed(feat_ms)),
+             _Spy(db.codebook, "quantize", cuda_timed(quant_ms)),
+             _Spy(db.ivf, "search_packed", ivf_timed),
+             _Spy(matching_ops, "match_desc_global", mdg),
+             _Spy(matching_ops, "_coarse_global_argmax",
+                  cuda_timed(coarse_ms)),
+             _Spy(g, "_add_factors_sym", sym),
+             _Spy(engine, "match_symmetric", count(sym_pairs, True)),
+             _Spy(engine, "match_arrays_warp", count(warped, False)),
+             _Spy(system, "process_frame", frame_timed)]
+    dataset = ClipDataset(frames, name="loop")
+    args = main_torch.parse_args(["--no-viz"])
+    try:
+        torch.cuda.synchronize()
+        flash_attention.launches = pack_rows.launches = 0
+        gn.gn_sums.launches = gn.gn_solve.launches = 0
+        t0 = time.perf_counter()
+        summary = main_torch.run(system, dataset, args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"attention": flash_attention.launches,
+                    "gn_accumulate": gn.gn_sums.launches,
+                    "gn_solve": gn.gn_solve.launches,
+                    "pack_rows": pack_rows.launches}
+    finally:
+        for s in reversed(spies):
+            s.restore()
+
+    stats = summary["stats"]
+    n, n_edges = summary["frames"], g.n_edges
+    edges = set(zip(g.ii[:n_edges].tolist(), g.jj[:n_edges].tolist()))
+    kf_frames = system.arena.frame_id[:system.arena.n_size].tolist()
+    print(f"retrieval drive: {n} frames in {wall_ms:.1f} ms, stats {stats}, "
+          f"keyframes at frames {kf_frames}, "
+          f"{n_edges} edges {sorted(edges)}, desc_global batches "
+          f"{g.n_desc_batches}, pairs {pairs}, retried through the "
+          f"symmetric decode {retried} [{card}]")
+    if summary["lost_at"] is not None or stats["skipped"] or \
+            stats["tracked"] != n - 1:
+        raise SystemExit("retrieval drive: the drive lost tracking")
+    if stats["keyframes"] < 3 or stats["retrieval_proposals"] < 1 or \
+            g.n_desc_batches < 1:
+        raise SystemExit(f"retrieval drive: {stats['keyframes']} keyframes, "
+                         f"{stats['retrieval_proposals']} proposals, "
+                         f"{g.n_desc_batches} desc_global batches: the "
+                         f"retrieval path was not exercised")
+    lost = [p for p in pairs if p not in edges and p not in retried]
+    if lost or g.n_desc_fallbacks != len(retried):
+        raise SystemExit(f"retrieval drive: desc_global pairs {lost} were "
+                         f"neither accepted nor retried")
+
+    per_match = len(pack_tables(engine.match_cfg, IMG_HW))
+    tracked = stats["tracked"]
+    n_sym = sum(sym_pairs)
+    expect = {
+        "attention": (mcfg.enc_depth + 4 * mcfg.dec_depth) * n
+        + 4 * mcfg.dec_depth * n_sym,
+        "pack_rows": per_match * (tracked + len(warped) + len(sym_pairs))
+        + 4 * len(pairs),
+        "gn_solve": tracked, "gn_accumulate": 0}
+    print(f"retrieval drive: attention launches {launches['attention']} "
+          f"(expected {expect['attention']} = ({mcfg.enc_depth} + "
+          f"{4 * mcfg.dec_depth}) x {n} frames + {4 * mcfg.dec_depth} x "
+          f"{n_sym} symmetric pairs); pack launches {launches['pack_rows']} "
+          f"(expected {expect['pack_rows']} = {per_match} tables x "
+          f"({tracked} tracked frames + {len(warped)} warped edges + "
+          f"{len(sym_pairs)} symmetric batches) + 4 x {len(pairs)} "
+          f"desc_global pairs); gn_solve launches {launches['gn_solve']}")
+    if launches != expect:
+        raise SystemExit("retrieval drive: kernel launches do not match the "
+                         "drive")
+    launches["gn_iterations"] = system.tracker.gn_iters_total
+
+    def mb(ts):
+        return sum(t.numel() * t.element_size() for t in ts) / 1e6
+
+    desc_mb = mb([t for v in g.desc_store.values() for t in v])
+    per_kf = desc_mb / len(g.desc_store)
+    buffer = int(cfg["map"]["buffer"])
+    accepted = sum(1 for p in pairs if p in edges and p not in retried)
+    print(f"retrieval drive: desc_global pairs accepted {accepted}, retried "
+          f"{len(retried)} (n_desc_fallbacks {g.n_desc_fallbacks}); "
+          f"desc_store {desc_mb:.2f} MB for {len(g.desc_store)} keyframes "
+          f"({per_kf:.3f} MB each: int8 tables + f32 confidences), "
+          f"{per_kf * buffer:.1f} MB at map.buffer {buffer}, beside the edge "
+          f"store's {mb(g._stores()):.1f} MB for {g.max_edges} edges")
+    kf_ms = [ms for ms, kf in frame_ms[1:] if kf]
+    plain_ms = [ms for ms, kf in frame_ms[1:] if not kf]
+    print(f"retrieval drive: process_frame ms (host clock, card synchronised)"
+          f", keyframe frames with their rounds {_r(kf_ms)}, plain tracked "
+          f"frames {_r(plain_ms)} [{card}]")
+    print(f"retrieval drive: per keyframe prep_features {_r(feat_ms)} ms, "
+          f"quantize {_r(quant_ms)} ms ({db.codebook.size} words, CUDA "
+          f"events), host IVF query {_r(ivf_ms)} ms (host clock); per "
+          f"desc_global pair match_desc_global {_r(mdg_ms)} ms, of which "
+          f"coarse argmax {_r(coarse_ms)} ms (two per pair; CUDA events) "
+          f"[{card}]")
+    n_kf = system.arena.n_size
+    if not (bool(torch.isfinite(system.arena.T_WC[:n_kf]).all())
+            and bool(torch.isfinite(system.arena.X[:n_kf]).all())):
+        raise SystemExit("retrieval drive: non-finite keyframe poses or "
+                         "pointmaps")
+    out = {"frames": n, "keyframes": stats["keyframes"],
+           "retrieval_proposals": stats["retrieval_proposals"],
+           "retrieval_edges": stats["retrieval_edges"],
+           "desc_global_batches": g.n_desc_batches,
+           "desc_global_pairs": len(pairs), "desc_accepted": accepted,
+           "desc_fallbacks": g.n_desc_fallbacks,
+           "desc_store_mb_per_keyframe": per_kf,
+           "desc_store_mb_at_buffer": per_kf * buffer,
+           "prep_features_ms": feat_ms, "quantize_ms": quant_ms,
+           "ivf_query_ms": ivf_ms, "match_desc_global_ms": mdg_ms,
+           "coarse_argmax_ms": coarse_ms, "drive_ms": wall_ms,
+           "keyframe_frame_ms": kf_ms, "tracked_frame_ms": plain_ms}
+    return launches, system, pairs, out
+
+
+def _r(xs):
+    return [round(x, 4) for x in xs]
+
+
+def check_desc_global(system, pair, card):
+    """One proposed pair's stored q8 tables from the retrieval drive
+    through ``match_desc_global`` on the card and on the CPU: all eight
+    outputs bitwise equal.  Then its time and that of one direction's
+    coarse argmax between CUDA events (calls queued behind a spin kernel;
+    a call whose launches outlast it shows the host's pace), and the
+    device busy time and kernel count of one traced call of each."""
+    import torch
+
+    from mast3r_slam_torch.ops import matching as matching_ops
+
+    g = system.graph
+    (D8_i, dc_i), (D8_j, dc_j) = g.desc_store[pair[0]], g.desc_store[pair[1]]
+    h, w = IMG_HW
+    cfg = g.match_cfg
+    card_out = matching_ops.match_desc_global(D8_i, D8_j, dc_i, dc_j, h, w,
+                                              cfg)
+    cpu_out = matching_ops.match_desc_global(
+        *(t.cpu() for t in (D8_i, D8_j, dc_i, dc_j)), h, w, cfg)
+    same = [torch.equal(a.cpu(), b) for a, b in zip(card_out, cpu_out)]
+    vm = torch.cat([card_out[2], card_out[3]]).float().mean().item()
+    q4 = D8_j[:, ::4, ::4].reshape(1, -1, D8_j.shape[-1])
+    # ties: every 8x8 block of the table repeated from its corner, so each
+    # key of the stride-4 grid has an equal twin; the first must win
+    tied = D8_i[:, ::8, ::8].repeat_interleave(8, 1).repeat_interleave(8, 2)
+    tie_card = matching_ops._coarse_global_argmax(tied, q4, h, w, s_key=4)
+    tie_cpu = matching_ops._coarse_global_argmax(tied.cpu(), q4.cpu(), h, w,
+                                                 s_key=4)
+    same += [torch.equal(a.cpu(), b) for a, b in zip(tie_card, tie_cpu)]
+    mdg_ms = time_ms(lambda: matching_ops.match_desc_global(
+        D8_i, D8_j, dc_i, dc_j, h, w, cfg), reps=10, warmup=2)
+    coarse_ms = time_ms(lambda: matching_ops._coarse_global_argmax(
+        D8_i, q4, h, w, s_key=4), reps=10, warmup=2)
+    busy, kernels = device_busy(lambda: matching_ops.match_desc_global(
+        D8_i, D8_j, dc_i, dc_j, h, w, cfg), top=8)
+    cbusy, ckernels = device_busy(lambda: matching_ops._coarse_global_argmax(
+        D8_i, q4, h, w, s_key=4), top=4)
+    print(f"desc_global card against CPU (pair {pair}, {h}x{w}): the eight "
+          f"outputs and, on a table of tied keys, the coarse argmax's "
+          f"three bitwise equal {same}, share of queries passing the gates "
+          f"{vm:.4f}; match_desc_global {mdg_ms:.3f} ms between events, "
+          f"device busy {busy:.3f} ms in {kernels} kernels; one direction's "
+          f"coarse argmax ({q4.shape[1]} queries x {q4.shape[1]} keys) "
+          f"{coarse_ms:.3f} ms, busy {cbusy:.3f} ms in {ckernels} kernels "
+          f"[{card}]")
+    if not all(same):
+        raise SystemExit("match_desc_global on the card disagrees with the "
+                         "CPU")
+    return {"match_desc_global_ms": mdg_ms, "coarse_argmax_ms": coarse_ms,
+            "match_desc_global_device_busy_ms": busy,
+            "match_desc_global_kernels": kernels,
+            "coarse_argmax_device_busy_ms": cbusy,
+            "coarse_argmax_kernels": ckernels, "gate_pass_share": vm}
+
+
+def drive_oracle_loop(card):
+    """The 24-frame loop clip of ``tests/test_retrieval.py:216`` (32x48,
+    ``noise_std 0.01``, seed 7) with the oracle's q8 descriptors
+    (``export_desc``) and ``make_oracle_retrieval``, at
+    ``config/eval_no_calib.yaml``, on the card and on the CPU: the same
+    stats, edges and desc_global counts, a loop-closure edge, a desc_global
+    batch, and the card's ATE within ``ORACLE_ATE_CPU_ATOL`` of the
+    CPU's."""
+    from mast3r_slam_torch import evaluate
+    from mast3r_slam_torch.pipeline import SLAMSystem
+    from mast3r_slam_torch.testing import (OracleEngine, SyntheticSequence,
+                                           make_oracle_retrieval)
+    from mast3r_slam_torch.utils.config import load_config
+
+    seq = SyntheticSequence(n_frames=24, h=32, w=48, seed=3,
+                            traj_scale=0.35, loop=True)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        cfg = load_config("config/eval_no_calib.yaml")
+        cfg["dataset"]["img_size"] = 48
+        engine = OracleEngine(seq, noise_std=0.01, seed=7, export_desc=True,
+                              device=dev)
+        system = SLAMSystem(cfg, engine, (seq.h, seq.w), buffer=32,
+                            retrieval=make_oracle_retrieval(seq, engine),
+                            device=dev)
+        for i in range(len(seq)):
+            system.process_frame(i, seq.images[i])
+        system.terminate()
+        with tempfile.TemporaryDirectory() as tmp:
+            evaluate.save_traj(tmp, "est.txt", seq.timestamps, system.arena)
+            seq.write_gt(f"{tmp}/gt.txt")
+            ate = evaluate.ate_rmse(f"{tmp}/gt.txt", f"{tmp}/est.txt",
+                                    max_diff=0.05)
+        g = system.graph
+        res[dev] = (dict(system.stats),
+                    (g.ii[:g.n_edges].tolist(), g.jj[:g.n_edges].tolist()),
+                    g.n_desc_batches, g.n_desc_fallbacks, ate)
+    (stats, (ii, jj), nb, nf, ate), cpu = res["cuda"], res["cpu"]
+    span = max(abs(a - b) for a, b in zip(ii, jj))
+    print(f"oracle loop drive with retrieval: ATE {ate:.6f} m (the CPU "
+          f"{cpu[4]:.6f} m), stats {stats}, {len(ii)} edges, widest span "
+          f"{span}, desc_global batches {nb}, fallbacks {nf} [{card}]")
+    if stats != cpu[0] or (ii, jj) != cpu[1] or (nb, nf) != cpu[2:4] or \
+            nb < 1 or span <= 1 or abs(ate - cpu[4]) > ORACLE_ATE_CPU_ATOL:
+        raise SystemExit("oracle loop drive with retrieval failed")
+    return {"ate": ate, "ate_cpu": cpu[4], "desc_global_batches": nb,
+            "desc_fallbacks": nf, "retrieval_edges": stats["retrieval_edges"]}
+
+
 def device_busy(fn, top=12):
     """Sum of the device kernels' times in one traced call of ``fn``
     (``torch.profiler``), printing the ``top`` kernels by time, and the
@@ -1290,6 +1688,24 @@ def main(argv=None):
     stages.update(check_ba(record, cfg, card))
     stages.update(backend_breakdown(system, record, card))
     del system, record
+
+    from mast3r_slam_torch.retrieval.database import RetrievalDatabase
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        db = RetrievalDatabase.from_checkpoint(
+            *forge_retrieval_files(tmp, args.seed, mcfg.enc_embed_dim),
+            device="cuda")
+    print(f"retrieval database: {db.codebook.size} x {db.codebook.dim} "
+          f"codebook on the card, forged and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    loop = make_clip(args.seed, N_FRAMES_LOOP_OUT, IMG_HW, LOOP_SHIFT,
+                     LOOP_TEXTURE)
+    launches_retr, system_retr, pairs, retrieval = drive_retrieval(
+        engine, mcfg, cfg, loop + loop[-2::-1], db, card)
+    retrieval.update(check_desc_global(system_retr, pairs[0], card))
+    del system_retr, db
+    torch.cuda.empty_cache()
     _, system_exact, _, timings_exact = drive_frontend(
         engine, mcfg, cfg_exact, frames[:N_FRAMES_REFERENCE_EXACT], card,
         "reference-exact drive")
@@ -1299,12 +1715,25 @@ def main(argv=None):
     stages_exact.update(timings_exact)
     del system_exact
     ate = drive_oracle(card)
+    ate["loop_retrieval"] = drive_oracle_loop(card)
 
+    # the main path's launches: the production drive's and the retrieval
+    # drive's, each counted from 0 over its own run
+    kinds = ("attention", "gn_accumulate", "gn_solve", "pack_rows")
+    by_drive = {k: {"production": launches[k], "retrieval": launches_retr[k]}
+                for k in kinds}
+    if not all(launches_retr[k] > 0
+               for k in ("attention", "gn_solve", "pack_rows")):
+        raise SystemExit("a kernel of the main path was not launched by the "
+                         "retrieval drive")
+    gn_iterations = launches["gn_iterations"] + launches_retr["gn_iterations"]
+    launches = {k: launches[k] + launches_retr[k] for k in kinds}
     kernels = [
         dict(name="attention", route="cuda",
              source="mast3r_slam_torch/csrc/attention.cu",
              replaces="mast3r_slam_tpu/ops/attention.py:28",
-             launches=launches["attention"], tensor_core_sass=tc_ops,
+             launches=launches["attention"],
+             launches_by_drive=by_drive["attention"], tensor_core_sass=tc_ops,
              **attn["encoder"]),
         # the sums' arithmetic (accumulate_point) reaches the card through
         # two entries: its count is the launches of either on the main path
@@ -1318,17 +1747,20 @@ def main(argv=None):
              source="mast3r_slam_torch/csrc/gn.cu",
              replaces="mast3r_slam_tpu/tracker.py:343",
              launches=launches["gn_solve"],
-             gn_iterations=launches["gn_iterations"], **gnst),
+             launches_by_drive=by_drive["gn_solve"],
+             gn_iterations=gn_iterations, **gnst),
         dict(name="pack_rows", route="cuda",
              source="mast3r_slam_torch/csrc/pack.cu",
              replaces="mast3r_slam_tpu/ops/pack.py:73",
-             launches=launches["pack_rows"], **packt),
+             launches=launches["pack_rows"],
+             launches_by_drive=by_drive["pack_rows"], **packt),
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the main path was not launched by it")
     print(f"attention decoder shape: {json.dumps(attn['decoder'])}")
     print(f"stages: {json.dumps(stages)}")
     print(f"stages reference-exact: {json.dumps(stages_exact)}")
+    print(f"retrieval: {json.dumps(retrieval)}")
     print(f"oracle ATE (m): {json.dumps(ate)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,11 +2,14 @@
 """Command-line entry point of the PyTorch + CUDA port's dense SLAM pipeline.
 
 The counterpart of ``main.py``: load a dataset, build the engine and the
-SLAM system (``mast3r_slam_torch``: tracking, the factor-graph backend and
-relocalization), loop ``SLAMSystem.process_frame`` over the frames, export
-the keyframe trajectory (TUM format), the point cloud (PLY) and the
-keyframe images, and score ATE against a ground truth.  The backend runs
-inline after each keyframe (JAX's ``single_thread`` path).
+SLAM system (``mast3r_slam_torch``: tracking, the factor-graph backend, the
+ASMK retrieval database and relocalization), loop
+``SLAMSystem.process_frame`` over the frames, export the keyframe
+trajectory (TUM format), the point cloud (PLY) and the keyframe images,
+write the protocol rates (``--rates-out``) and score ATE against a ground
+truth.  The backend runs inline after each keyframe (JAX's
+``single_thread`` path).  A run that ends lost (in RELOC) says so and exits
+0, as ``main.py`` does.
 
     python3 main_torch.py --dataset <clip> --config config/base.yaml --no-viz
 
@@ -32,11 +35,6 @@ LATER_SLICES = {
     "backend_device": "multi-GPU slice (backend on a second card)",
     "resume_state": "state and threads slice (save_state / load_state)",
     "state_out": "state and threads slice (save_state / load_state)",
-    "oracle_desc": "retrieval slice (desc_global edges from the oracle's "
-                   "q8 tables)",
-    "oracle_retrieval": "retrieval slice (ASMK database)",
-    "retrieval_checkpoint": "retrieval slice (ASMK database)",
-    "codebook": "retrieval slice (ASMK database)",
     "viz_port": "viewer slice (live WebGL viewer)",
     "profile_blocks": "per-block breakdown slice (utils/breakdown.py)",
 }
@@ -53,6 +51,17 @@ def parse_args(argv=None):
     p.add_argument("--calib", default="",
                    help="intrinsics yaml override (config/intrinsics.yaml "
                         "schema)")
+    p.add_argument("--retrieval-checkpoint",
+                   default="checkpoints/"
+                           "MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric"
+                           "_retrieval_trainingfree.pth",
+                   help="retrieval head of the ASMK database (loop closure "
+                        "and relocalization proposals); with --codebook")
+    p.add_argument("--codebook",
+                   default="checkpoints/"
+                           "MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric"
+                           "_codebook.pkl",
+                   help="ASMK codebook pickle of the database")
     p.add_argument("--checkpoint",
                    default="checkpoints/"
                            "MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric"
@@ -73,9 +82,22 @@ def parse_args(argv=None):
     p.add_argument("--gt", default="", help="TUM-format GT for ATE scoring")
     p.add_argument("--ate-max-diff", type=float, default=0.01,
                    help="timestamp association window of the built-in ATE")
+    p.add_argument("--oracle-desc", action="store_true",
+                   help="with --oracle: the oracle also exports q8 world "
+                        "descriptors, which turns on the descriptor paths "
+                        "(pose-warped consecutive edge tables, desc_global "
+                        "retrieval edges)")
+    p.add_argument("--oracle-retrieval", action="store_true",
+                   help="with --oracle: an ASMK database over the clip's "
+                        "own view signatures "
+                        "(testing.make_oracle_retrieval), so loop-closure "
+                        "and relocalization proposals fire")
     p.add_argument("--diag-out", default="",
                    help="per-frame diagnostics JSONL (match_frac, gn_iters, "
                         "keyframe decisions, pose)")
+    p.add_argument("--rates-out", default="logs/rates.json",
+                   help="where to write the run's protocol rates (the "
+                        "rates dict printed at the end, main.py's keys)")
     p.add_argument("--profile", action="store_true",
                    help="section timers (synchronises the device per "
                         "section)")
@@ -92,10 +114,6 @@ def parse_args(argv=None):
     p.add_argument("--backend-device", type=int, default=None)
     p.add_argument("--resume-state", default=None)
     p.add_argument("--state-out", default=None)
-    p.add_argument("--oracle-desc", action="store_true")
-    p.add_argument("--oracle-retrieval", action="store_true")
-    p.add_argument("--retrieval-checkpoint", default=None)
-    p.add_argument("--codebook", default=None)
     p.add_argument("--viz-port", type=int, default=None)
     p.add_argument("--profile-blocks", action="store_true")
     return p.parse_args(argv)
@@ -207,6 +225,33 @@ def run(system, dataset, args):
     }
 
 
+def protocol_rates(system, n, args, config, retrieval_active):
+    """The run's protocol rates with ``main.py``'s keys (main.py:365-410):
+    keyframes, accepted non-consecutive edges and retrieval proposals per
+    frame over ``n`` frames, mean GN and BA iterations, the share of BA
+    rounds that solved, the desc_global batches and the share of proposals
+    that fell back to the symmetric decode, and the run's provenance."""
+    stats, g, trk = system.stats, system.graph, system.tracker
+    rounds = max(stats["ba_rounds"], 1)
+    return {
+        "frames": n,
+        "kf_rate": stats["keyframes"] / max(n, 1),
+        "retrieval_edge_rate": stats["retrieval_edges"] / max(n, 1),
+        "retrieval_proposal_rate": stats["retrieval_proposals"] / max(n, 1),
+        "mean_gn_iters": trk.gn_iters_total / max(trk.gn_frames, 1),
+        "mean_ba_iters": system.ba_iters_total / rounds,
+        "ba_ok_rate": system.ba_ok_total / rounds,
+        "desc_edge_batches": int(g.n_desc_batches),
+        "desc_fallback_rate": int(g.n_desc_fallbacks)
+        / max(stats["retrieval_proposals"], 1),
+        "config": str(args.config),
+        "dataset": str(args.dataset),
+        "retrieval_active": bool(retrieval_active),
+        "reference_exact": bool(args.reference_exact
+                                or config.get("reference_exact", False)),
+    }
+
+
 def export(system, dataset, args):
     """Trajectory, reconstruction and keyframes under ``logs/`` and, with
     ``--gt``, the ATE (main.py:416-429).  Returns the ATE or None."""
@@ -282,7 +327,8 @@ def main(argv=None):
         seq.T_WC = seq.T_WC[::sub]
         h, w = seq.h, seq.w
         config["dataset"]["img_size"] = max(h, w)
-        engine = OracleEngine(seq, device=device)
+        engine = OracleEngine(seq, export_desc=args.oracle_desc,
+                              device=device)
         # the oracle carries frame identity in an encode-call counter:
         # align it with the first processed frame
         engine._encode_counter = max(int(args.start_frame), 0)
@@ -293,11 +339,27 @@ def main(argv=None):
             downsample=int(config["dataset"].get("img_downsample", 1)),
             match_cfg=MatchingConfig.from_dict(config["matching"]),
             device=device)
-    # the retrieval database is a later slice: no loop-closure or
-    # relocalization proposals, as main.py without a retrieval checkpoint
     retrieval = None
-    print("[note] retrieval is a later slice of the port: no loop-closure "
-          "or relocalization proposals")
+    if args.oracle:
+        if args.oracle_retrieval:
+            from mast3r_slam_torch.testing import make_oracle_retrieval
+
+            retrieval = make_oracle_retrieval(seq, engine)
+            print("oracle retrieval database on (loop-closure proposals "
+                  "from the clip's own view signatures)")
+    else:
+        rc = pathlib.Path(args.retrieval_checkpoint)
+        cb = pathlib.Path(args.codebook)
+        if rc.exists() and cb.exists():
+            from mast3r_slam_torch.retrieval.database import \
+                RetrievalDatabase
+
+            retrieval = RetrievalDatabase.from_checkpoint(str(rc), str(cb),
+                                                          device=device)
+            print("retrieval database loaded (ASMK loop closure on)")
+        else:
+            print("[warn] retrieval checkpoint/codebook not found - "
+                  "loop closure and relocalization proposals disabled")
     if not config.get("single_thread", False):
         print("[note] single_thread: False: the backend runs inline after "
               "each keyframe (main.py's single_thread path); the threaded "
@@ -310,15 +372,30 @@ def main(argv=None):
     print(f"done: {summary['frames']} frames in {summary['seconds']:.1f}s "
           f"({summary['fps']:.2f} FPS)")
     print(f"stats: {summary['stats']}")
+    if summary["lost_at_end"]:
+        print("[lost] the run ended in RELOC: tracking was not recovered")
     print(f"rates: kf_rate {summary['kf_rate']:.4f} mean_gn_iters "
           f"{summary['mean_gn_iters']:.2f} ba_rounds {summary['ba_rounds']} "
           f"mean_ba_iters {summary['mean_ba_iters']:.2f}")
+    graph = system.graph
+    if graph.retrieval_edge_mode == "desc_global":
+        print(f"desc_global edge batches: {graph.n_desc_batches}")
+    n = len(dataset)
+    if args.max_frames:
+        n = min(n, args.max_frames)
+    rates = protocol_rates(system, n, args, config, retrieval is not None)
+    print(f"rates: {rates}")
+    if args.rates_out:
+        rp = pathlib.Path(args.rates_out)
+        rp.parent.mkdir(parents=True, exist_ok=True)
+        with open(rp, "w") as f:
+            json.dump(rates, f)
 
     if getattr(dataset, "save_results", True):
         export(system, dataset, args)
     if args.profile:
         profiler.print_summary()
-    return 3 if summary["lost_at_end"] else 0
+    return 0
 
 
 if __name__ == "__main__":

@@ -16,9 +16,13 @@ result (the edge and pose buckets of a solve, so ``solve_poses`` returns
 JAX's ``upd``), and dropped where they only batch work (the symmetric
 match and the cache refresh run on the real rows).
 
+Retrieval edges between keyframes whose q8 descriptor tables are stored
+(``retrieval_edge_mode: desc_global``) are matched pose-free from those
+tables (``ops/matching.py::match_desc_global``), and the pairs its gates
+reject are retried through the symmetric decode.
+
 Not in this slice: the backend on a second card and the sharded BA
-(``device``, ``params``, ``mesh``: the multi-GPU slice) and the
-``desc_global`` retrieval-edge matcher (the retrieval slice).
+(``device``, ``params``, ``mesh``: the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -255,12 +259,16 @@ class FactorGraph:
         self.retrieval_edge_mode = str(
             self.local_cfg.get("retrieval_edge_mode", "sym"))
         self.desc_store: dict = {}
+        # add_factors batches matched by desc_global, and the pairs of those
+        # batches its gates rejected (retried through the symmetric decode)
+        self.n_desc_batches = 0
+        self.n_desc_fallbacks = 0
         try:
-            match_cfg = getattr(engine, "match_cfg", None) or \
+            self.match_cfg = getattr(engine, "match_cfg", None) or \
                 matching_ops.MatchingConfig.from_dict(cfg["matching"])
         except (KeyError, TypeError):   # reduced test configs
-            match_cfg = matching_ops.MatchingConfig()
-        if match_cfg.edge_query_subsample != 2:
+            self.match_cfg = matching_ops.MatchingConfig()
+        if self.match_cfg.edge_query_subsample != 2:
             # desc_global emits the edge_query_subsample 2 subgrid layout
             self.retrieval_edge_mode = "sym"
         self.max_edges = int(self.local_cfg.get("max_edges", 256))
@@ -391,18 +399,29 @@ class FactorGraph:
                 return added
         ii = [int(a) for a in ii]
         jj = [int(b) for b in jj]
-        if (self.retrieval_edge_mode == "desc_global" and not is_reloc
-                and all(r in self.desc_store for r in set(ii) | set(jj))):
-            raise NotImplementedError(
-                "desc_global retrieval edges (ops/matching.py::"
-                "match_desc_global): retrieval slice")
-        dev = arena.feat.device
-        sel_i = torch.tensor(ii, device=dev)
-        sel_j = torch.tensor(jj, device=dev)
-        (idx_i2j, idx_j2i, valid_match_j, valid_match_i,
-         Qii, Qjj, Qji, Qij) = self.engine.match_symmetric(
-            arena.feat[sel_i], arena.pos[sel_i],
-            arena.feat[sel_j], arena.pos[sel_j])
+        use_desc = (self.retrieval_edge_mode == "desc_global"
+                    and not is_reloc
+                    and all(r in self.desc_store for r in set(ii) | set(jj)))
+        if use_desc:
+            # one match_desc_global call per edge (global_opt.py:514-546);
+            # JAX pads the batch to a bucket and drops the padded rows
+            self.n_desc_batches += 1
+            h, w = arena.img_hw
+            per = [matching_ops.match_desc_global(
+                self.desc_store[a][0], self.desc_store[b][0],
+                self.desc_store[a][1], self.desc_store[b][1], h, w,
+                self.match_cfg) for a, b in zip(ii, jj)]
+            (idx_i2j, idx_j2i, valid_match_j, valid_match_i,
+             Qii, Qjj, Qji, Qij) = (torch.cat([p[k] for p in per])
+                                    for k in range(8))
+        else:
+            dev = arena.feat.device
+            sel_i = torch.tensor(ii, device=dev)
+            sel_j = torch.tensor(jj, device=dev)
+            (idx_i2j, idx_j2i, valid_match_j, valid_match_i,
+             Qii, Qjj, Qji, Qij) = self.engine.match_symmetric(
+                arena.feat[sel_i], arena.pos[sel_i],
+                arena.feat[sel_j], arena.pos[sel_j])
         if idx_i2j.shape[1] * 4 == Qii.shape[1]:
             # subgrid edge match: gate on the subgrid, store at full size
             h, w = arena.img_hw
@@ -424,12 +443,32 @@ class FactorGraph:
             return False
         accept = ~invalid
         n_new = int(accept.sum())
+        if use_desc and invalid.any():
+            # the desc_global gates are conservative: retry only the
+            # rejected pairs through the symmetric decode, whose edges are
+            # written first (global_opt.py:576-592)
+            self.n_desc_fallbacks += int(invalid.sum())
+            ra = self._add_factors_sym(arena, list(ii_np[invalid]),
+                                       list(jj_np[invalid]), min_match_frac)
+            if n_new == 0:
+                return ra
         if n_new == 0:
             return False
         self._append(ii_np, jj_np, accept,
                      (idx_i2j, idx_j2i, valid_match_j[..., 0],
                       valid_match_i[..., 0], Qj, Qi))
         return True
+
+    def _add_factors_sym(self, arena: KeyframeArena, ii, jj,
+                         min_match_frac) -> bool:
+        """``add_factors`` through the symmetric decode, whatever the mode
+        (global_opt.py:614): the desc_global rejection fallback."""
+        mode = self.retrieval_edge_mode
+        self.retrieval_edge_mode = "sym"
+        try:
+            return self.add_factors(arena, ii, jj, min_match_frac)
+        finally:
+            self.retrieval_edge_mode = mode
 
     def _add_consecutive_reused(self, arena: KeyframeArena, i: int, j: int,
                                 reuse) -> bool:

@@ -392,8 +392,9 @@ def _repeat2x2(A, b, h2, w2):
 
 
 def _clip_pixels(p, h, w):
-    lim = torch.tensor([w - 1, h - 1], device=p.device)
-    return torch.minimum(torch.clamp(p, min=0), lim)
+    """(..., 2) pixels clipped into the image (no host-to-device copy)."""
+    return torch.stack([p[..., 0].clamp(0, w - 1), p[..., 1].clamp(0, h - 1)],
+                       dim=-1)
 
 
 def _occlusion_gate(X11, X21_q, p1_int, valid_proj2, h, w, dist_thresh):
@@ -566,3 +567,127 @@ def match(X11, X21, D11, D21, idx_1_to_2_init=None,
     p1, valid_proj2 = match_lm(X11, X21, idx_1_to_2_init, cfg)
     return match_after_lm(X11, X21, D11, D21, p1, valid_proj2, cfg,
                           query_subsample)
+
+
+# ---------------------------------------------------------------------------
+# Pose-free global descriptor matching (retrieval / loop-closure edges)
+# ---------------------------------------------------------------------------
+
+def _coarse_global_argmax(D_tab8, D_q8, h, w, s_key: int,
+                          chunk: int = 2048, excl_cells: int = 3):
+    """For each query descriptor, the best-scoring position on the
+    ``s_key``-strided key grid of the table, and the best score outside an
+    ``excl_cells``-radius box of key cells around the winner
+    (matching.py:807): the second peak of a ratio test, away from the
+    winner's legitimately high neighbours.  Queries go in chunks of
+    ``chunk`` so the (chunk, n_keys) score block stays small.
+
+    The int8 products are taken in f32: each is at most 127^2 and a
+    24-feature sum at most 387,096 < 2^24, so every partial sum is an exact
+    integer in any order and the scores equal JAX's int32 ones.  The first
+    maximum wins (``torch.argmax``, as ``jnp.argmax``).
+
+    D_tab8 (b, h, w, f) int8; D_q8 (b, nq, f) int8.  Returns (pos (b, nq, 2)
+    int64 full-res pixels, score (b, nq) int32, second (b, nq) int32)."""
+    b, f = D_tab8.shape[0], D_tab8.shape[-1]
+    hk, wk = h // s_key, w // s_key
+    keys = D_tab8[:, ::s_key, ::s_key].reshape(b, hk * wk, f) \
+        .to(torch.float32).transpose(1, 2)                  # (b, f, nk)
+    ku = torch.arange(wk, device=D_tab8.device)
+    kv = torch.arange(hk, device=D_tab8.device)
+    best, score, second = [], [], []
+    for c0 in range(0, D_q8.shape[1], chunk):
+        q = D_q8[:, c0:c0 + chunk].to(torch.float32)
+        s = torch.bmm(q, keys)                               # (b, c, nk)
+        bi = torch.argmax(s, dim=-1)
+        smax = s.gather(-1, bi[..., None])[..., 0]
+        # the exclusion box as (rows near) x (columns near)
+        near_u = (ku - (bi % wk)[..., None]).abs() <= excl_cells
+        near_v = (kv - (bi // wk)[..., None]).abs() <= excl_cells
+        near = (near_v[..., :, None] & near_u[..., None, :]).flatten(-2)
+        s2 = s.masked_fill_(near, -(2 ** 30)).amax(dim=-1)
+        best.append(bi)
+        score.append(smax.to(torch.int32))
+        second.append(s2.to(torch.int32))
+    best = torch.cat(best, dim=1)
+    pos = torch.stack([(best % wk) * s_key, (best // wk) * s_key], dim=-1)
+    return pos, torch.cat(score, dim=1), torch.cat(second, dim=1)
+
+
+def match_desc_global(D8_i, D8_j, dconf_i, dconf_j, h, w,
+                      cfg: MatchingConfig = MatchingConfig()):
+    """Pose-free symmetric matching of two keyframes from their stored q8
+    descriptor tables, the decode-free retrieval-edge path
+    (matching.py:858).
+
+    Per direction: the coarse global argmax of the quarter-grid queries on
+    the stride-4 key grid, each half-grid query inheriting its parent
+    quarter cell's position, then the refine walk at full table resolution
+    (radius 2, dilation 2, then dilation 1 returning the winning score),
+    both through packed tables (kernel C on the card).  Four gates replace
+    the decode's occlusion gate: the reverse field at the match must come
+    back to the query (mutual), the refined score must beat the second peak
+    by ``desc_global_min_margin`` cosine, no target half cell may be
+    claimed by more than ``desc_global_max_mult`` queries, and the cosine
+    must reach ``desc_global_min_cos``.
+
+    D8_i / D8_j (b, h, w, f) int8; dconf_i / dconf_j (b, h*w, 1).  Returns
+    ``add_factors``' subgrid layout (edge_query_subsample 2): (idx_i2j
+    (b, hw/4), idx_j2i, vm_j (b, hw/4, 1), vm_i, Qii, Qjj, Qji, Qij), where
+    idx_i2j[q] is the pixel of view i matched by half-grid query q of view
+    j and the Q blocks are the full-res descriptor confidences."""
+    b = D8_i.shape[0]
+    h2, w2 = h // 2, w // 2
+    h4, w4 = h // 4, w // 4
+
+    def half_queries(D8):
+        return D8[:, ::2, ::2].reshape(b, h2 * w2, -1)
+
+    def quarter_queries(D8):
+        return D8[:, ::4, ::4].reshape(b, h4 * w4, -1)
+
+    def expand2x(A):
+        """(b, h4*w4, ...) quarter-grid field -> (b, h2*w2, ...): each
+        half-grid query takes its parent quarter cell's value."""
+        A4 = A.reshape((b, h4, w4) + tuple(A.shape[2:]))
+        A4 = A4.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return A4.reshape((b, h2 * w2) + tuple(A.shape[2:]))
+
+    def one_direction(D_tab, D_q4, D_qh):
+        pos4, _, second4 = _coarse_global_argmax(D_tab, D_q4, h, w, s_key=4)
+        pos = refine_matches(D_tab, D_qh, expand2x(pos4), radius=2,
+                             dilation_max=2, coarse_bits=cfg.coarse_bits,
+                             dilation_min=2, u_pack=5)
+        pos, rs = refine_matches(D_tab, D_qh, pos, radius=2, dilation_max=1,
+                                 coarse_bits=cfg.coarse_bits, u_pack=5,
+                                 return_score=True)
+        return _clip_pixels(pos, h, w), rs, expand2x(second4)
+
+    p_ij, s_ij, s2_ij = one_direction(       # (b, h2*w2, 2) in i's pixels
+        D8_i, quarter_queries(D8_j), half_queries(D8_j))
+    p_ji, s_ji, s2_ji = one_direction(       # in j's pixels
+        D8_j, quarter_queries(D8_i), half_queries(D8_i))
+
+    f_norm = 127.0 * 127.0   # q8 scale of unit descriptors, squared
+    qi = torch.arange(h2 * w2, device=D8_i.device)
+    q_pos = torch.stack([(qi % w2) * 2, (qi // w2) * 2], dim=-1)[None]
+
+    def gates(p_fwd, p_rev_field, s_fwd, s2_fwd):
+        cell = (p_fwd[..., 1] // 2) * w2 + (p_fwd[..., 0] // 2)
+        back = torch.gather(p_rev_field, 1, cell[..., None].expand(-1, -1, 2))
+        ok = (back - q_pos).abs().amax(dim=-1) <= cfg.desc_global_mutual_px
+        cos = s_fwd.to(torch.float32) / f_norm
+        cos2 = s2_fwd.to(torch.float32) / f_norm
+        ok &= (cos - cos2) >= cfg.desc_global_min_margin
+        ok &= cos >= cfg.desc_global_min_cos
+        # claims per target half cell: an integer count, deterministic
+        mult = torch.zeros((b, h2 * w2), dtype=torch.int32,
+                           device=cell.device)
+        mult.scatter_add_(1, cell, torch.ones_like(mult))
+        ok &= torch.gather(mult, 1, cell) <= cfg.desc_global_max_mult
+        return ok
+
+    vm_j = gates(p_ij, p_ji, s_ij, s2_ij)              # per query of j
+    vm_i = gates(p_ji, p_ij, s_ji, s2_ji)              # per query of i
+    return (pixel_to_lin(p_ij, w), pixel_to_lin(p_ji, w), vm_j[..., None],
+            vm_i[..., None], dconf_i, dconf_j, dconf_j, dconf_i)

@@ -4,7 +4,8 @@ Mirrors ``mast3r_slam_tpu/pipeline.py``: the mode machine {INIT,
 TRACKING, RELOC, TERMINATED}, keyframe decisions in the uncalibrated and
 the calibrated mode, the backend round of every new keyframe (a
 consecutive factor-graph edge, the retrieval's edges and the pointmap BA,
-``_process_task``) and relocalization through the retrieval object.
+``_process_task``) and relocalization through the retrieval object
+(``NullRetrieval`` or an ASMK ``RetrievalDatabase``).
 
 The backend runs inline: after each keyframe, ``process_frame`` runs its
 round before it returns, which is the JAX package's deterministic
@@ -42,8 +43,8 @@ from .utils.profiler import TimeProfiler
 
 
 class NullRetrieval:
-    """No loop-closure proposals (pipeline.py:51); the retrieval database
-    of a later slice plugs in with the same interface."""
+    """No loop-closure or relocalization proposals (pipeline.py:51); the
+    ASMK ``retrieval.database.RetrievalDatabase`` has the same interface."""
 
     def update(self, frame, arena, add_after_query, k, min_thresh):
         return []

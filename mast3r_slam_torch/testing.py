@@ -3,11 +3,11 @@
 The role of ``mast3r_slam_tpu/testing.py``: no published weights or clips
 are in the repository, so the tests and ``chip_smoke.py`` drive the real
 network with seeded random weights on frames made with numpy, and drive the
-whole frontend against a known trajectory with the synthetic-scene harness
-(``SyntheticSequence`` + ``OracleEngine``, testing.py:25-402, rendered in
-numpy with the poses as torch tensors).  The oracle's ``match_symmetric``
-and ``make_oracle_retrieval`` belong to the backend and retrieval and are
-not ported.
+whole system against a known trajectory with the synthetic-scene harness
+(``SyntheticSequence`` + ``OracleEngine``, testing.py:25-420, rendered in
+numpy with the poses as torch tensors), with the oracle's q8 world
+descriptors for the descriptor paths (``export_desc``) and an ASMK
+database over its view signatures (``make_oracle_retrieval``).
 """
 
 from __future__ import annotations
@@ -366,7 +366,8 @@ class OracleEngine:
 
     def __init__(self, seq: SyntheticSequence, noise_std: float = 0.0,
                  match_noise_px: int = 0, seed: int = 0,
-                 blackout_frames=(), device="cuda"):
+                 blackout_frames=(), export_desc: bool = False,
+                 device="cuda"):
         from .device import resolve_device
 
         self.device = resolve_device(device)
@@ -382,6 +383,11 @@ class OracleEngine:
         self.feat_dim = self.FEAT_DIM
         # frames whose matches are wiped (tracking-failure injection)
         self.blackout_frames = set(blackout_frames)
+        # export_desc: match_asymmetric also returns both views' q8 world
+        # descriptors, which turns on the descriptor paths (the pose-warped
+        # consecutive edge's tables, desc_global retrieval edges)
+        self.export_desc = bool(export_desc)
+        self._desc_cache: dict = {}
 
     def _t(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -446,6 +452,18 @@ class OracleEngine:
     def _fid(feat):
         return int(feat[0, 0, 0])
 
+    def _desc8(self, i):
+        """(1, hw, 24) int8 q8 world descriptors of view i, cached
+        (testing.py:358): the globally unique geometric ladder, its finest
+        period ~3 pixel footprints at the scene's depth."""
+        if i not in self._desc_cache:
+            footprint = 4.0 / float(self.seq.K[0, 0])
+            D = world_descriptors(self.seq.X_world[i], geometric=True,
+                                  base_wavelength=3.0 * footprint)
+            self._desc_cache[i] = self._t(
+                np.clip(np.round(D * 127.0), -127, 127).astype(np.int8)[None])
+        return self._desc_cache[i]
+
     def match_asymmetric(self, frame_feat, frame_pos, kf_feat, kf_pos,
                          idx_i2j_init=None):
         fi = self._fid(frame_feat)
@@ -456,9 +474,12 @@ class OracleEngine:
         if fi in self.blackout_frames:
             inside = np.zeros_like(inside)
         ones = torch.ones((1, self.hw, 1), device=self.device)
-        return (self._t(idx[None]), self._t(inside[None, :, None]),
+        outs = (self._t(idx[None]), self._t(inside[None, :, None]),
                 self._t(Xff[None]), 10.0 * ones, 4.0 * ones,
                 self._t(Xkf[None]), 10.0 * ones, 4.0 * ones)
+        if self.export_desc:
+            outs = outs + (self._desc8(fi), self._desc8(ki))
+        return outs
 
     def inference_mono(self, feat, pos):
         X = self._pointmap(self._fid(feat))
@@ -483,3 +504,22 @@ class OracleEngine:
         Q = torch.full((B, self.hw, 1), 4.0, device=self.device)
         return (self._t(idx_i2j), self._t(idx_j2i), self._t(vm_j[..., None]),
                 self._t(vm_i[..., None]), Q, Q, Q, Q)
+
+
+def make_oracle_retrieval(seq: SyntheticSequence, engine: OracleEngine,
+                          codebook_size: int = 64, nfeat: int = 16):
+    """A ``RetrievalDatabase`` over the oracle's view signatures
+    (testing.py:423): ``RetrievalParams.random`` at the signature width and
+    a k-means codebook of the sequence's own signatures, on the engine's
+    device."""
+    from .retrieval.asmk import Codebook
+    from .retrieval.database import RetrievalDatabase
+    from .retrieval.model import RetrievalParams
+
+    d = engine.FEAT_DIM
+    params = RetrievalParams.random(d_in=d, hdims=(d,))
+    feats = np.concatenate(
+        [engine.view_signature(i) for i in range(len(seq.X_world))])
+    codebook = Codebook.train(feats, codebook_size, n_iter=5,
+                              device=engine.device)
+    return RetrievalDatabase(params, codebook, nfeat=nfeat)

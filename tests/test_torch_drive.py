@@ -512,9 +512,8 @@ def test_main_torch_says_the_backend_runs_inline(clip, tmp_path,
 @pytest.mark.parametrize("flag", [
     ["--int8-encoder"], ["--int8-local-head"], ["--tp", "2"],
     ["--backend-device", "0"], ["--resume-state", "s.npz"],
-    ["--state-out", "s.npz"], ["--oracle-desc"], ["--oracle-retrieval"],
-    ["--viz-port", "8089"], ["--profile-blocks"],
-    ["--retrieval-checkpoint", "r.pth"], ["--codebook", "c.pkl"], []],
+    ["--state-out", "s.npz"], ["--viz-port", "8089"], ["--profile-blocks"],
+    []],
     ids=lambda f: f[0] if f else "without --no-viz")
 def test_main_torch_refuses_later_slices(flag):
     """A flag whose module is a later slice exits with one line naming the
@@ -524,9 +523,6 @@ def test_main_torch_refuses_later_slices(flag):
         main_torch.main(argv)
     msg = str(e.value.code)
     assert "not ported yet" in msg and "slice" in msg and "\n" not in msg
-    if flag and flag[0] in ("--oracle-desc", "--oracle-retrieval",
-                            "--retrieval-checkpoint", "--codebook"):
-        assert "retrieval slice" in msg
 
 
 def test_main_torch_needs_a_card_without_cpu_flag(clip, tmp_path,

@@ -470,10 +470,11 @@ def test_edge_query_subsample_ba_bitwise():
 
 
 def test_slices_of_other_prs_raise():
-    """The second-card backend and sharded BA, and the desc_global edge
-    matcher (reached when every endpoint has a stored table), raise
-    NotImplementedError naming their slice; they never fall back to the
-    symmetric path."""
+    """The second-card backend and sharded BA raise NotImplementedError
+    naming their slice.  The desc_global edge matcher (reached when every
+    endpoint has a stored table) is ported: all-zero tables fail its gates
+    and the pair is retried through the symmetric path, which counts one
+    desc_global batch and one fallback."""
     cfg = load_config("config/base.yaml")
     eng = IdentityEngine(torch)
     for kw in ({"device": 1}, {"params": {}}, {"mesh": object()}):
@@ -485,10 +486,11 @@ def test_slices_of_other_prs_raise():
     for r in (0, 2):
         g.store_desc(r, torch.zeros((1, HW, 8), dtype=torch.int8),
                      torch.ones((1, HW, 1)), H, W)
-    with pytest.raises(NotImplementedError, match="retrieval slice"):
-        g.add_factors(ta, [0], [2], 0.1)
+    assert g.add_factors(ta, [0], [2], 0.1) and g.n_edges == 1
+    assert g.n_desc_batches == 1 and g.n_desc_fallbacks == 1
     # a pair without stored tables takes the symmetric path, as in JAX
-    assert g.add_factors(ta, [0], [1], 0.1) and g.n_edges == 1
+    assert g.add_factors(ta, [0], [1], 0.1) and g.n_edges == 2
+    assert g.n_desc_batches == 1
     # reference-exact (edge_query_subsample 1) always matches symmetrically
     cfg["matching"]["edge_query_subsample"] = 1
     assert go.FactorGraph(eng, HW, cfg, store_device="cpu") \
