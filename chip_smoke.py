@@ -14,10 +14,14 @@ call.  Then it drives the port as a user would:
 * ``main_torch.run`` (the frame loop of ``main_torch.py``) at full ViT-L
   width on 384x512 frames with seeded random weights, bf16 heads (as
   ``main_torch.py`` runs them by default) and ``config/base.yaml``
-  unmodified (the production matcher; the backend inline after each
-  keyframe, its consecutive edge pose-warped without a decode), counting
-  that every attention, GN solve and table pack of that drive went through
-  the kernels, and writing and reading back the trajectory;
+  unmodified (the production matcher; the backend on its thread, the
+  consecutive edge pose-warped without a decode), counting that every
+  attention, GN solve and table pack of that drive, the backend thread's
+  included, went through the kernels, and writing and reading back the
+  trajectory; its end state saved with ``--state-out`` and loaded into a
+  fresh system, bitwise, with the file's bytes and the save and load
+  seconds; the same frames again with ``single_thread: True``, frame,
+  keyframe-frame and drive times side by side;
 * the last backend round's BA inputs solved again on the CPU and held
   against the card's solve;
 * the same drive with ``reference_exact: true`` (the full-resolution
@@ -33,21 +37,27 @@ call.  Then it drives the port as a user would:
   CPU, bitwise;
 * the oracle harness (a rendered 16-frame clip with known poses),
   uncalibrated and calibrated, with the backend, scored by ATE and held
-  against the same drive on the CPU; and the 24-frame oracle loop clip
+  against the same drive on the CPU; the 24-frame oracle loop clip
   with the oracle's q8 descriptors and retrieval database, on the card
-  against the CPU;
+  against the CPU; the 16-frame clip with the backend on its thread, with
+  a drain after every frame against the inline run and free-running; the
+  blackout clip relocalizing through the thread; and the 16-frame clip
+  saved at frame 8, resumed and finished against the uninterrupted run;
 * a stage breakdown of one tracking step and of the backend: a round's
   time, BA iterations, kernels per BA iteration, and the frame time of a
   keyframe against a plain tracked frame.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
-Exits non-zero, printing no result, when any phase fails or no CUDA card is
-present.  The last line is the JSON device record.
+Exits non-zero, printing no result, when any phase fails, when the whole
+run outlasts its deadline or no CUDA card is present.  The last line is
+the JSON device record.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import faulthandler
 import json
 import subprocess
 import sys
@@ -84,6 +94,14 @@ N_FRAMES_REFERENCE_EXACT = 6
 # card's oracle ATE against the same drive on the CPU
 ORACLE_ATE_LIMIT = {"uncalibrated": 0.05, "calibrated": 0.1}
 ORACLE_ATE_CPU_ATOL = 1e-5
+# the threaded oracle drive with a drain per frame against the inline one,
+# and a resumed oracle drive against the uninterrupted one, on the card:
+# poses (both bitwise on the CPU, tests/test_torch_threading.py and
+# tests/test_torch_state.py)
+ORACLE_THREAD_ATOL = ORACLE_RESUME_ATOL = 1e-6
+# the longest a drain may wait for the backend's queued rounds, and the
+# whole script's deadline: a stuck round fails the run instead of hanging it
+DRAIN_S, WATCHDOG_S = 300.0, 1150.0
 # the card's BA against the CPU's on the same inputs: H and g of one
 # iteration (relative to their largest entry; read 4.5e-7 and 2.8e-7 on an
 # H100), and the whole solve's poses (read 1.8e-4; the drive's round does
@@ -764,17 +782,20 @@ def build_engine(seed):
     return InferenceEngine(model, IMG_HW, device="cuda"), mcfg, sd
 
 
-def drive_frontend(engine, mcfg, cfg, frames, card, label):
-    """``main_torch.run`` (dataset -> ``SLAMSystem.process_frame`` with its
-    inline backend -> summary) over an in-memory clip with the
-    configuration ``cfg``, then the trajectory written with
-    ``evaluate.save_traj`` and read back.  Every kernel's count is set to 0
-    just before the loop and read just after; the counts must be what the
-    configuration and the drive's keyframes imply.  The drive must make two
-    keyframes, a backend round and an edge.  Each frame's
-    ``process_frame`` and each backend round are timed on the host clock
-    (the card synchronised around them), and the last round's BA inputs
-    are kept for ``check_ba``."""
+def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None):
+    """``main_torch.run`` (dataset -> ``SLAMSystem.process_frame`` -> the
+    backend's rounds -> summary) over an in-memory clip with the
+    configuration ``cfg`` (``config/base.yaml``: the rounds on the backend
+    thread), then the trajectory written with ``evaluate.save_traj`` and
+    read back.  Every kernel's count is set to 0 just before the loop and
+    read just after; the counts must be what the drive's frames and its
+    edges (pose-warped or through the symmetric decode, as the spies on the
+    engine count them) imply.  The drive must make two keyframes, a backend
+    round and an edge.  Each frame's ``process_frame`` and each backend
+    round are timed on the host clock, as the frame loop sees them (no
+    synchronise added: a frame ends with host reads of its results), and
+    the last round's BA inputs are kept for ``check_ba``.  With
+    ``state_out`` the run saves its state there (``--state-out``), timed."""
     import torch
 
     import main_torch
@@ -788,71 +809,82 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
     from mast3r_slam_torch.tracker import TrackerConfig
 
     engine.match_cfg = MatchingConfig.from_dict(cfg["matching"])
-    system = SLAMSystem(cfg, engine, IMG_HW, buffer=len(frames),
-                        device="cuda")
+    system = SLAMSystem(cfg, engine, IMG_HW, device="cuda")
+    threaded = system._backend_thread is not None
     timing = {"frames": [], "rounds": []}
     record = {}
-    process_frame, process_task = system.process_frame, system._process_task
-    solve_poses = system.graph.solve_poses
+    sym_pairs, warped = [], []
 
-    def timed(fn, out):
-        def call(*a):
-            torch.cuda.synchronize()
+    def timed(out):
+        def hook(fn, *a):
             t0 = time.perf_counter()
             res = fn(*a)
-            torch.cuda.synchronize()
             out.append(((time.perf_counter() - t0) * 1e3, res))
             return res
-        return call
+        return hook
 
-    def keep_inputs(arena, residual):
+    def keep_inputs(fn, arena, residual):
         g = system.graph
+        n = arena.n_size
         record.update(
             residual=residual, n_edges=g.n_edges, ii=g.ii.copy(),
-            jj=g.jj.copy(), n_size=arena.n_size, K=g.K,
-            arena={k: getattr(arena, k).clone() for k in
+            jj=g.jj.copy(), n_size=n, K=g.K,
+            arena={k: getattr(arena, k)[:n].clone() for k in
                    ("X", "C", "N", "N_updates", "T_WC")},
             store={k: t[:g.n_edges].clone()
                    for k, t in zip(STORE, g._stores())})
-        res = solve_poses(arena, residual)
+        res = fn(arena, residual)
         record["result"] = res
         return res
 
-    add_factors = system.graph.add_factors
-
-    def keep_args(*a, **kw):
+    def keep_args(fn, *a, **kw):
         record["add_factors"] = (a, kw)
-        return add_factors(*a, **kw)
+        return fn(*a, **kw)
 
-    system.process_frame = timed(process_frame, timing["frames"])
-    system._process_task = timed(process_task, timing["rounds"])
-    system.graph.solve_poses = keep_inputs
-    system.graph.add_factors = keep_args
+    def save_timed(fn, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(path)
+        timing["state_save_s"] = time.perf_counter() - t0
+
+    spies = [_Spy(system, "process_frame", timed(timing["frames"])),
+             _Spy(system, "_process_task", timed(timing["rounds"])),
+             _Spy(system.graph, "solve_poses", keep_inputs),
+             _Spy(system.graph, "add_factors", keep_args),
+             _Spy(system, "save_state", save_timed),
+             _Spy(engine, "match_symmetric", _counting(sym_pairs, True)),
+             _Spy(engine, "match_arrays_warp", _counting(warped, False))]
     dataset = ClipDataset(frames)
-    args = main_torch.parse_args(["--no-viz"])
-    torch.cuda.synchronize()
+    args = main_torch.parse_args(
+        ["--no-viz"] + (["--state-out", state_out] if state_out else []))
+    try:
+        torch.cuda.synchronize()
+        flash_attention.launches = pack_rows.launches = 0
+        gn.gn_sums.launches = gn.gn_solve.launches = 0
+        t0 = time.perf_counter()
+        summary = main_torch.run(system, dataset, args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"attention": flash_attention.launches,
+                    "gn_accumulate": gn.gn_sums.launches,
+                    "gn_solve": gn.gn_solve.launches,
+                    "pack_rows": pack_rows.launches}
+    finally:
+        for spy in reversed(spies):
+            spy.restore()
+    if threaded and system._backend_thread.is_alive():
+        raise SystemExit(f"{label}: the backend thread outlived terminate")
 
-    flash_attention.launches = pack_rows.launches = 0
-    gn.gn_sums.launches = gn.gn_solve.launches = 0
-    t0 = time.perf_counter()
-    summary = main_torch.run(system, dataset, args)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"attention": flash_attention.launches,
-                "gn_accumulate": gn.gn_sums.launches,
-                "gn_solve": gn.gn_solve.launches,
-                "pack_rows": pack_rows.launches}
-    system.process_frame, system._process_task = process_frame, process_task
-    system.graph.solve_poses = solve_poses
-    system.graph.add_factors = add_factors
-
+    # the drive: the frame loop and the final drain, not the state save
+    wall_ms -= 1e3 * timing.get("state_save_s", 0.0)
     stats = summary["stats"]
     n = summary["frames"]
     n_edges = system.graph.n_edges
     print(f"{label}: {n} frames in {wall_ms:.1f} ms, stats {stats}, mean GN "
           f"iterations {summary['mean_gn_iters']:.2f}, {n_edges} edges, "
           f"{system.ba_iters_total} BA iterations in "
-          f"{summary['ba_rounds']} rounds [{card}]")
+          f"{summary['ba_rounds']} rounds, backend "
+          f"{'on a thread' if threaded else 'inline'} [{card}]")
     if summary["lost_at"] is not None or n != len(frames) or \
             stats["skipped"]:
         raise SystemExit(f"{label}: the drive lost tracking (random "
@@ -867,23 +899,29 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
 
     # every frame encodes once and decodes once (INIT: mono decode;
     # TRACKING: asymmetric decode), each decode with 4 attentions a block;
-    # a symmetric edge decodes both directions in one B=2 decode and
-    # matches them in one batched match, a pose-warped edge only matches
-    # (on the edge subgrid, with as many tables as a full match)
-    reuse = bool(cfg["local_opt"].get("reuse_track_matches", True))
-    sym_edges = 0 if reuse else n_edges
+    # a symmetric edge decodes both directions in one B=2 decode and a
+    # batch of them is matched in one batched match, a pose-warped edge only
+    # matches (on the edge subgrid, with as many tables as a full match).
+    # Each round adds its consecutive edge one way or the other: warped
+    # when the tracker's match of the pair is still the one the frontend
+    # left (on a thread, the frontend may have made the next keyframe
+    # first), symmetric otherwise.
+    n_sym = sum(sym_pairs)
+    if len(warped) + n_sym != n_edges:
+        raise SystemExit(f"{label}: {len(warped)} warped and {n_sym} "
+                         f"symmetric edge matches for {n_edges} edges")
     expect_attn = (mcfg.enc_depth + 4 * mcfg.dec_depth) * n \
-        + 4 * mcfg.dec_depth * sym_edges
+        + 4 * mcfg.dec_depth * n_sym
     per_match = len(pack_tables(engine.match_cfg, IMG_HW))
-    expect_pack = per_match * (tracked + n_edges)
+    expect_pack = per_match * (tracked + len(warped) + len(sym_pairs))
     joint = TrackerConfig.from_config(cfg).joint_ray_huber
     print(f"{label}: attention launches {launches['attention']} (expected "
           f"{expect_attn} = ({mcfg.enc_depth} + {4 * mcfg.dec_depth}) x {n} "
-          f"frames + {4 * mcfg.dec_depth} x {sym_edges} symmetric edges); "
+          f"frames + {4 * mcfg.dec_depth} x {n_sym} symmetric edges); "
           f"pack launches {launches['pack_rows']} (expected {expect_pack} = "
-          f"{per_match} tables x ({tracked} tracked frames + {n_edges} "
-          f"{'pose-warped' if reuse else 'symmetric'} edges)); gn_solve "
-          f"launches {launches['gn_solve']} "
+          f"{per_match} tables x ({tracked} tracked frames + {len(warped)} "
+          f"pose-warped edges + {len(sym_pairs)} symmetric batches)); "
+          f"gn_solve launches {launches['gn_solve']} "
           f"({'one per tracked frame' if joint else 'none: per-component Huber'}"
           f", {system.tracker.gn_iters_total} GN iterations in all); "
           f"gn_accumulate launches {launches['gn_accumulate']}")
@@ -934,21 +972,29 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label):
           f"{g.max_edges} edges (int32 indices, bool masks, f32 weights), "
           f"pregather cache {cache_mb:.1f} MB")
 
-    # frame times: a frame that made a keyframe (and ran its backend round)
-    # against a plain tracked frame; the first frame (INIT) is left out
+    # frame times: a frame that made a keyframe (inline, with its backend
+    # round) against a plain tracked frame; the first frame (INIT) is left
+    # out
+    frame_ms = [ms for ms, _ in timing["frames"]]
     kf_ms = [ms for (ms, info) in timing["frames"][1:] if info["new_kf"]]
     plain_ms = [ms for (ms, info) in timing["frames"][1:]
                 if not info["new_kf"]]
     rounds_ms = [ms for ms, _ in timing["rounds"]]
-    print(f"{label}: process_frame ms, keyframe frames "
-          f"{[round(x, 3) for x in kf_ms]}, plain tracked frames "
-          f"{[round(x, 3) for x in plain_ms]}; backend rounds (add_factors + "
-          f"solve_poses) {[round(x, 3) for x in rounds_ms]} [{card}]")
-    timings = {"keyframe_frame_ms": kf_ms, "tracked_frame_ms": plain_ms,
+    print(f"{label}: process_frame ms {_r(frame_ms)}, keyframe frames "
+          f"{_r(kf_ms)}, plain tracked frames {_r(plain_ms)}; backend rounds "
+          f"(add_factors + solve_poses, "
+          f"{'on the thread' if threaded else 'inline'}) {_r(rounds_ms)}; "
+          f"the drive {wall_ms:.1f} ms (host clock) [{card}]")
+    timings = {"frame_ms": frame_ms, "keyframe_frame_ms": kf_ms,
+               "tracked_frame_ms": plain_ms,
                "backend_round_ms": rounds_ms[1:],   # round 0: INIT, no edge
+               "drive_ms": wall_ms, "stats": stats,
                "ba_iterations": system.ba_iters_total,
                "ba_rounds": stats["ba_rounds"], "edges": n_edges,
+               "warped_edges": len(warped), "symmetric_edges": n_sym,
                "edge_store_mb": store_mb, "pregather_cache_mb": cache_mb}
+    if "state_save_s" in timing:
+        timings["state_save_s"] = timing["state_save_s"]
     return launches, system, record, timings
 
 
@@ -1153,6 +1199,253 @@ def drive_oracle(card):
     return out
 
 
+def check_state(system, engine, path, save_s, card):
+    """The production drive's end state, saved by ``main_torch.run`` with
+    ``--state-out`` (``save_state``: JAX's ``.npz`` of the whole arena at
+    ``map.buffer`` slots and the edge store at ``max_edges`` rows), loaded
+    into a fresh system on the card: every arena field, the edge store and
+    the stats come back bitwise, the poses as ``load_state`` re-normalises
+    them (the saved poses normalised on the card).  Prints the file's bytes
+    and the save and load seconds (host clock, the card synchronised)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from mast3r_slam_torch.ops import lie_sim3 as sim3
+    from mast3r_slam_torch.pipeline import SLAMSystem
+
+    nbytes = os.path.getsize(path)
+    fresh = SLAMSystem(system.cfg, engine, IMG_HW, device="cuda")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_state(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mode = fresh.mode.name
+    finally:
+        fresh.terminate()
+    a, b = system.arena, fresh.arena
+    differ = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "n_size":
+            same = x == y
+        else:
+            if f.name == "T_WC":
+                x = sim3.normalize(x)
+            same = x.dtype == y.dtype and x.device == y.device and \
+                torch.equal(x, y)
+        if not same:
+            differ.append(f"arena.{f.name}")
+    g, h = system.graph, fresh.graph
+    differ += [f"graph.{k}" for k, x, y in zip(STORE, g._stores(),
+                                                h._stores())
+               if x.dtype != y.dtype or not torch.equal(x, y)]
+    if g.n_edges != h.n_edges or g.max_edges != h.max_edges or \
+            not np.array_equal(g.ii, h.ii) or not np.array_equal(g.jj, h.jj):
+        differ.append("graph.ii / jj / n_edges")
+    if fresh.stats != system.stats or mode != "TRACKING":
+        differ.append(f"stats {fresh.stats} or mode {mode}")
+    shift = float((sim3.normalize(a.T_WC) - a.T_WC).abs().max())
+
+    def mb(ts):
+        return sum(t.numel() * t.element_size() for t in ts) / 1e6
+
+    arena_mb = mb([getattr(a, f.name) for f in dataclasses.fields(a)
+                   if f.name != "n_size"])
+    store_mb = mb(g._stores())
+    print(f"state: the production drive's end state ({a.n_size} of "
+          f"{a.buffer} keyframe slots, {g.n_edges} of {g.max_edges} edges; "
+          f"arena {arena_mb:.1f} MB, edge store {store_mb:.1f} MB on the "
+          f"card) saved in {save_s:.2f} s to a {nbytes} byte file, loaded "
+          f"into a fresh system in {load_s:.2f} s; every arena field and "
+          f"edge-store array back bitwise: {not differ} (poses re-normalised "
+          f"by load_state, which moved them by {shift:.3g}) [{card}]")
+    if differ:
+        raise SystemExit(f"state: {differ} did not come back as saved")
+    del fresh
+    torch.cuda.empty_cache()
+    return {"state_file_bytes": nbytes, "state_save_s": save_s,
+            "state_load_s": load_s, "state_arena_mb": arena_mb,
+            "state_edge_store_mb": store_mb,
+            "state_normalise_pose_shift": shift}
+
+
+def compare_threaded_inline(runs, card, label):
+    """A drive's frames with the backend on its thread
+    (``config/base.yaml``) beside the same frames with ``single_thread:
+    True``, on the host clock as the frame loop sees them: ``runs`` holds
+    each mode's drives (run in turns)."""
+    keys = ("frame_ms", "keyframe_frame_ms", "tracked_frame_ms",
+            "drive_ms", "stats")
+    print(f"{label}, threaded against inline [{card}]:")
+    for k in keys:
+        for mode in ("threaded", "inline"):
+            vals = [t[k] for t in runs[mode]]
+            vals = [_r(v) if isinstance(v, list) else
+                    round(v, 1) if isinstance(v, float) else v for v in vals]
+            print(f"  {k} {mode}: {'; '.join(map(str, vals))}")
+    return {f"compare_{mode}_{k}": [t[k] for t in runs[mode]]
+            for mode in ("threaded", "inline") for k in keys}
+
+
+def _oracle_system(seq, path, single_thread, retrieval=False, **engine_kw):
+    """``SLAMSystem`` on the card over an oracle clip at the config
+    ``path``, ``single_thread`` as given, with the oracle database if
+    ``retrieval``; ``engine_kw`` go to ``OracleEngine``."""
+    from mast3r_slam_torch.pipeline import SLAMSystem
+    from mast3r_slam_torch.testing import OracleEngine, make_oracle_retrieval
+    from mast3r_slam_torch.utils.config import load_config
+
+    cfg = load_config(path)
+    cfg["dataset"]["img_size"] = max(seq.h, seq.w)
+    cfg["single_thread"] = single_thread
+    engine = OracleEngine(seq, device="cuda", **engine_kw)
+    return SLAMSystem(cfg, engine, (seq.h, seq.w), buffer=32, device="cuda",
+                      retrieval=make_oracle_retrieval(seq, engine)
+                      if retrieval else None)
+
+
+def _oracle_run(system, seq, lo=0, hi=None, drain_each=False):
+    """Frames ``lo:hi`` of ``seq``; the modes.  A drain never waits past
+    ``DRAIN_S``."""
+    from mast3r_slam_torch.testing import drain_within
+
+    modes = []
+    for i in range(lo, len(seq) if hi is None else hi):
+        modes.append(system.process_frame(i, seq.images[i])["mode"])
+        if drain_each:
+            drain_within(system, DRAIN_S)
+    drain_within(system, DRAIN_S)
+    return modes
+
+
+def _finish(system, label):
+    system.terminate()
+    if system._backend_thread is not None and \
+            system._backend_thread.is_alive():
+        raise SystemExit(f"{label}: the backend thread outlived terminate")
+
+
+def _oracle_ate(seq, arena):
+    from mast3r_slam_torch import evaluate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluate.save_traj(tmp, "est.txt", seq.timestamps, arena)
+        seq.write_gt(f"{tmp}/gt.txt")
+        return evaluate.ate_rmse(f"{tmp}/gt.txt", f"{tmp}/est.txt",
+                                 max_diff=0.05)
+
+
+def drive_oracle_threaded(card):
+    """The backend on its thread on the card: the 16-frame oracle clip at
+    ``config/eval_no_calib.yaml`` with ``single_thread: False``, once with
+    a bounded drain after every frame (it must equal the inline card run:
+    stats, edges, BA iterations, poses within ``ORACLE_THREAD_ATOL``) and
+    once free-running (no backend error, ATE under the JAX tests' 0.05 m);
+    then the blackout clip with the oracle database, free-running: it must
+    relocalize and end tracking."""
+    from mast3r_slam_torch.testing import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=16, h=48, w=64, seed=0, traj_scale=0.5)
+    path = "config/eval_no_calib.yaml"
+    runs = {}
+    for name, single, each in (("inline", True, False),
+                               ("drained", False, True),
+                               ("free", False, False)):
+        system = _oracle_system(seq, path, single)
+        t0 = time.perf_counter()
+        _oracle_run(system, seq, drain_each=each)
+        _finish(system, f"oracle {name}")
+        runs[name] = (system, (time.perf_counter() - t0) * 1e3,
+                      _oracle_ate(seq, system.arena))
+    (ref, ref_ms, ref_ate), (thr, thr_ms, thr_ate), (free, free_ms, free_ate) = \
+        runs["inline"], runs["drained"], runs["free"]
+    n = ref.arena.n_size
+    same = thr.stats == ref.stats and thr.arena.n_size == n and \
+        thr.ba_iters_total == ref.ba_iters_total and \
+        np.array_equal(thr.graph.ii[:thr.graph.n_edges],
+                       ref.graph.ii[:ref.graph.n_edges]) and \
+        np.array_equal(thr.graph.jj[:thr.graph.n_edges],
+                       ref.graph.jj[:ref.graph.n_edges])
+    err = float((thr.arena.T_WC[:n] - ref.arena.T_WC[:n]).abs().max()) \
+        if thr.arena.n_size == n else float("inf")
+    print(f"oracle drive, backend on its thread with a drain after every "
+          f"frame: stats {thr.stats}, the inline card run's stats, edges and "
+          f"BA iterations {same}, keyframe poses {err:.3g} apart (limit "
+          f"{ORACLE_THREAD_ATOL}), ATE {thr_ate:.6f} m (inline "
+          f"{ref_ate:.6f}); {thr_ms:.1f} ms against {ref_ms:.1f} inline "
+          f"[{card}]")
+    print(f"oracle drive, backend on its thread, free-running: stats "
+          f"{free.stats}, ATE {free_ate:.6f} m (limit "
+          f"{ORACLE_ATE_LIMIT['uncalibrated']}), {free_ms:.1f} ms [{card}]")
+    if not same or not err <= ORACLE_THREAD_ATOL:
+        raise SystemExit("the threaded oracle drive with a drain per frame "
+                         "differs from the inline one")
+    if not free_ate < ORACLE_ATE_LIMIT["uncalibrated"] or \
+            free.stats["ba_rounds"] < 1:
+        raise SystemExit("the free-running threaded oracle drive failed")
+
+    blk = SyntheticSequence(n_frames=14, h=32, w=48, seed=0, traj_scale=0.4)
+    system = _oracle_system(blk, path, False, retrieval=True,
+                            blackout_frames={6})
+    modes = _oracle_run(system, blk)
+    ended = system.mode.name
+    _finish(system, "oracle blackout")
+    print(f"oracle blackout clip, backend on its thread with the oracle "
+          f"database: modes {modes}, ended {ended}, stats {system.stats}, "
+          f"{system.reloc_attempts} relocalization attempts [{card}]")
+    if "RELOC" not in modes or ended == "RELOC" or \
+            system.reloc_attempts < 1 or system.stats["keyframes"] < 2:
+        raise SystemExit("the threaded oracle drive did not relocalize")
+    return {"threaded_drained_pose_abs": err, "threaded_drained_ate": thr_ate,
+            "threaded_free_ate": free_ate, "threaded_drive_ms": thr_ms,
+            "inline_drive_ms": ref_ms, "free_drive_ms": free_ms,
+            "blackout_reloc_attempts": system.reloc_attempts,
+            "blackout_stats": system.stats}
+
+
+def drive_oracle_state(card):
+    """Save / resume on the card: the 16-frame oracle clip at
+    ``config/eval_no_calib.yaml``, saved after frame 8, loaded into a fresh
+    system (the oracle's frame counter at 8) and finished; it must equal the
+    uninterrupted card run's stats, edges and BA iterations, poses within
+    ``ORACLE_RESUME_ATOL``."""
+    from mast3r_slam_torch.testing import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=16, h=48, w=64, seed=0, traj_scale=0.5)
+    path, half = "config/eval_no_calib.yaml", 8
+    full = _oracle_system(seq, path, True)
+    _oracle_run(full, seq)
+    _finish(full, "oracle uninterrupted")
+    first = _oracle_system(seq, path, True)
+    _oracle_run(first, seq, hi=half)
+    second = _oracle_system(seq, path, True)
+    second.engine._encode_counter = half
+    with tempfile.TemporaryDirectory() as tmp:
+        first.save_state(f"{tmp}/half.npz")
+        second.load_state(f"{tmp}/half.npz")
+    _oracle_run(second, seq, lo=half)
+    _finish(second, "oracle resumed")
+    n = full.arena.n_size
+    same = second.stats == full.stats and second.arena.n_size == n and \
+        second.ba_iters_total == full.ba_iters_total and \
+        np.array_equal(second.graph.ii[:second.graph.n_edges],
+                       full.graph.ii[:full.graph.n_edges])
+    err = float((second.arena.T_WC[:n] - full.arena.T_WC[:n]).abs().max()) \
+        if second.arena.n_size == n else float("inf")
+    print(f"oracle save at frame {half} and resume on the card: stats "
+          f"{second.stats}, the uninterrupted run's stats, edges and BA "
+          f"iterations {same}, keyframe poses {err:.3g} apart (limit "
+          f"{ORACLE_RESUME_ATOL}) [{card}]")
+    if not same or not err <= ORACLE_RESUME_ATOL:
+        raise SystemExit("the resumed oracle drive differs from the "
+                         "uninterrupted one")
+    return {"resume_pose_abs": err}
+
+
 def breakdown(system, img, card, label, full=True):
     """Device time of each stage of one tracking step against the last
     keyframe, on the drive's own state: encode, decode + heads, dense match
@@ -1302,6 +1595,15 @@ class _Spy:
             delattr(self.owner, self.name)
 
 
+def _counting(out, batch):
+    """A ``_Spy`` hook that appends each call's batch (the first argument's
+    leading size) or 1 to ``out``."""
+    def hook(fn, *a, **kw):
+        out.append(a[0].shape[0] if batch else 1)
+        return fn(*a, **kw)
+    return hook
+
+
 def cuda_timed(out):
     """A ``_Spy`` hook that appends each call's time between two CUDA
     events (ms) to ``out``."""
@@ -1320,7 +1622,8 @@ def cuda_timed(out):
     return hook
 
 
-def drive_retrieval(engine, mcfg, cfg, frames, db, card):
+def drive_retrieval(engine, mcfg, cfg, frames, db, card,
+                    label="retrieval drive"):
     """``main_torch.run`` over a loop clip (out and back, so the last
     keyframe sees the first frame's image again) with ``config/base.yaml``
     unmodified and the retrieval database ``db``: the backend's loop-closure
@@ -1330,10 +1633,14 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
     loop and read just after; they must be what the drive's frames, edges
     and desc_global pairs imply (4 packs per desc_global pair).  The drive
     must make 3 keyframes, a retrieval proposal and a desc_global batch,
-    and every desc_global pair must be accepted or retried.  Prints per
+    and every desc_global pair must be accepted or retried.  The rounds run
+    on the backend thread, as ``config/base.yaml`` says (inline with
+    ``single_thread: True``).  Prints per
     keyframe the time of ``prep_features`` + ``quantize`` (CUDA events) and
     of the host IVF query, and per desc_global pair that of
-    ``match_desc_global`` and its coarse argmax (CUDA events)."""
+    ``match_desc_global`` and its coarse argmax (CUDA events; on the
+    stream both threads share, so they also hold the frontend's kernels
+    queued between the two events)."""
     import torch
 
     import main_torch
@@ -1345,8 +1652,7 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
     from mast3r_slam_torch.testing import ClipDataset
 
     engine.match_cfg = matching_ops.MatchingConfig.from_dict(cfg["matching"])
-    system = SLAMSystem(cfg, engine, IMG_HW, buffer=len(frames),
-                        retrieval=db, device="cuda")
+    system = SLAMSystem(cfg, engine, IMG_HW, retrieval=db, device="cuda")
     g = system.graph
     feat_ms, quant_ms, ivf_ms, mdg_ms, coarse_ms = [], [], [], [], []
     pairs, retried, sym_pairs, warped, frame_ms = [], [], [], [], []
@@ -1358,7 +1664,8 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
         return res
 
     def mdg(fn, D8_i, D8_j, *a, **kw):
-        ptr = {t.data_ptr(): r for r, (t, _) in g.desc_store.items()}
+        # a copy: the frontend thread adds tables meanwhile
+        ptr = {t.data_ptr(): r for r, (t, _) in dict(g.desc_store).items()}
         pairs.append((ptr[D8_i.data_ptr()], ptr[D8_j.data_ptr()]))
         return cuda_timed(mdg_ms)(fn, D8_i, D8_j, *a, **kw)
 
@@ -1367,18 +1674,10 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
         return fn(arena, ii, jj, *a, **kw)
 
     def frame_timed(fn, *a, **kw):
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
         info = fn(*a, **kw)
-        torch.cuda.synchronize()
         frame_ms.append(((time.perf_counter() - t0) * 1e3, info["new_kf"]))
         return info
-
-    def count(out, batch):
-        def hook(fn, *a, **kw):
-            out.append(a[0].shape[0] if batch else 1)
-            return fn(*a, **kw)
-        return hook
 
     spies = [_Spy(db, "_features", cuda_timed(feat_ms)),
              _Spy(db.codebook, "quantize", cuda_timed(quant_ms)),
@@ -1387,8 +1686,8 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
              _Spy(matching_ops, "_coarse_global_argmax",
                   cuda_timed(coarse_ms)),
              _Spy(g, "_add_factors_sym", sym),
-             _Spy(engine, "match_symmetric", count(sym_pairs, True)),
-             _Spy(engine, "match_arrays_warp", count(warped, False)),
+             _Spy(engine, "match_symmetric", _counting(sym_pairs, True)),
+             _Spy(engine, "match_arrays_warp", _counting(warped, False)),
              _Spy(system, "process_frame", frame_timed)]
     dataset = ClipDataset(frames, name="loop")
     args = main_torch.parse_args(["--no-viz"])
@@ -1412,23 +1711,26 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
     n, n_edges = summary["frames"], g.n_edges
     edges = set(zip(g.ii[:n_edges].tolist(), g.jj[:n_edges].tolist()))
     kf_frames = system.arena.frame_id[:system.arena.n_size].tolist()
-    print(f"retrieval drive: {n} frames in {wall_ms:.1f} ms, stats {stats}, "
+    print(f"{label}: {n} frames in {wall_ms:.1f} ms, stats {stats}, "
           f"keyframes at frames {kf_frames}, "
           f"{n_edges} edges {sorted(edges)}, desc_global batches "
           f"{g.n_desc_batches}, pairs {pairs}, retried through the "
           f"symmetric decode {retried} [{card}]")
     if summary["lost_at"] is not None or stats["skipped"] or \
             stats["tracked"] != n - 1:
-        raise SystemExit("retrieval drive: the drive lost tracking")
+        raise SystemExit(f"{label}: the drive lost tracking")
     if stats["keyframes"] < 3 or stats["retrieval_proposals"] < 1 or \
             g.n_desc_batches < 1:
-        raise SystemExit(f"retrieval drive: {stats['keyframes']} keyframes, "
+        raise SystemExit(f"{label}: {stats['keyframes']} keyframes, "
                          f"{stats['retrieval_proposals']} proposals, "
                          f"{g.n_desc_batches} desc_global batches: the "
                          f"retrieval path was not exercised")
+    if system._backend_thread is not None and \
+            system._backend_thread.is_alive():
+        raise SystemExit(f"{label}: the backend thread outlived terminate")
     lost = [p for p in pairs if p not in edges and p not in retried]
     if lost or g.n_desc_fallbacks != len(retried):
-        raise SystemExit(f"retrieval drive: desc_global pairs {lost} were "
+        raise SystemExit(f"{label}: desc_global pairs {lost} were "
                          f"neither accepted nor retried")
 
     per_match = len(pack_tables(engine.match_cfg, IMG_HW))
@@ -1440,7 +1742,7 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
         "pack_rows": per_match * (tracked + len(warped) + len(sym_pairs))
         + 4 * len(pairs),
         "gn_solve": tracked, "gn_accumulate": 0}
-    print(f"retrieval drive: attention launches {launches['attention']} "
+    print(f"{label}: attention launches {launches['attention']} "
           f"(expected {expect['attention']} = ({mcfg.enc_depth} + "
           f"{4 * mcfg.dec_depth}) x {n} frames + {4 * mcfg.dec_depth} x "
           f"{n_sym} symmetric pairs); pack launches {launches['pack_rows']} "
@@ -1449,7 +1751,7 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
           f"{len(sym_pairs)} symmetric batches) + 4 x {len(pairs)} "
           f"desc_global pairs); gn_solve launches {launches['gn_solve']}")
     if launches != expect:
-        raise SystemExit("retrieval drive: kernel launches do not match the "
+        raise SystemExit(f"{label}: kernel launches do not match the "
                          "drive")
     launches["gn_iterations"] = system.tracker.gn_iters_total
 
@@ -1460,7 +1762,7 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
     per_kf = desc_mb / len(g.desc_store)
     buffer = int(cfg["map"]["buffer"])
     accepted = sum(1 for p in pairs if p in edges and p not in retried)
-    print(f"retrieval drive: desc_global pairs accepted {accepted}, retried "
+    print(f"{label}: desc_global pairs accepted {accepted}, retried "
           f"{len(retried)} (n_desc_fallbacks {g.n_desc_fallbacks}); "
           f"desc_store {desc_mb:.2f} MB for {len(g.desc_store)} keyframes "
           f"({per_kf:.3f} MB each: int8 tables + f32 confidences), "
@@ -1468,10 +1770,12 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
           f"store's {mb(g._stores()):.1f} MB for {g.max_edges} edges")
     kf_ms = [ms for ms, kf in frame_ms[1:] if kf]
     plain_ms = [ms for ms, kf in frame_ms[1:] if not kf]
-    print(f"retrieval drive: process_frame ms (host clock, card synchronised)"
-          f", keyframe frames with their rounds {_r(kf_ms)}, plain tracked "
-          f"frames {_r(plain_ms)} [{card}]")
-    print(f"retrieval drive: per keyframe prep_features {_r(feat_ms)} ms, "
+    print(f"{label}: process_frame ms (host clock, as the frame loop "
+          f"sees them; the rounds "
+          f"{'inline' if system.single_thread else 'on the backend thread'}"
+          f") {_r([ms for ms, _ in frame_ms])}, keyframe frames "
+          f"{_r(kf_ms)}, plain tracked frames {_r(plain_ms)} [{card}]")
+    print(f"{label}: per keyframe prep_features {_r(feat_ms)} ms, "
           f"quantize {_r(quant_ms)} ms ({db.codebook.size} words, CUDA "
           f"events), host IVF query {_r(ivf_ms)} ms (host clock); per "
           f"desc_global pair match_desc_global {_r(mdg_ms)} ms, of which "
@@ -1480,7 +1784,7 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
     n_kf = system.arena.n_size
     if not (bool(torch.isfinite(system.arena.T_WC[:n_kf]).all())
             and bool(torch.isfinite(system.arena.X[:n_kf]).all())):
-        raise SystemExit("retrieval drive: non-finite keyframe poses or "
+        raise SystemExit(f"{label}: non-finite keyframe poses or "
                          "pointmaps")
     out = {"frames": n, "keyframes": stats["keyframes"],
            "retrieval_proposals": stats["retrieval_proposals"],
@@ -1493,7 +1797,8 @@ def drive_retrieval(engine, mcfg, cfg, frames, db, card):
            "prep_features_ms": feat_ms, "quantize_ms": quant_ms,
            "ivf_query_ms": ivf_ms, "match_desc_global_ms": mdg_ms,
            "coarse_argmax_ms": coarse_ms, "drive_ms": wall_ms,
-           "keyframe_frame_ms": kf_ms, "tracked_frame_ms": plain_ms}
+           "keyframe_frame_ms": kf_ms, "tracked_frame_ms": plain_ms,
+           "frame_ms": [ms for ms, _ in frame_ms], "stats": stats}
     return launches, system, pairs, out
 
 
@@ -1639,6 +1944,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # no phase can hang: past the deadline the tracebacks are printed and
+    # the process exits 1
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     from mast3r_slam_torch import _build
 
     # f32 products stay f32 on the card (no TF32), in every phase
@@ -1665,7 +1973,12 @@ def main(argv=None):
                                                 load_config)
 
     cfg = load_config("config/base.yaml")       # as written
+    if cfg["single_thread"]:
+        raise SystemExit("config/base.yaml no longer selects the threaded "
+                         "backend")
     cfg_exact = apply_reference_exact(cfg)
+    cfg_inline = copy.deepcopy(cfg)
+    cfg_inline["single_thread"] = True
 
     attn = check_attention(peak_flops, peak_bw, card)
     gnt = check_gn(peak_bw, card)
@@ -1679,8 +1992,12 @@ def main(argv=None):
                        CLIP_TEXTURE)
     heads = check_heads(engine, sd, frames, card)
     del sd
-    launches, system, record, timings = drive_frontend(
-        engine, mcfg, cfg, frames[:N_FRAMES], card, "production drive")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, system, record, timings = drive_frontend(
+            engine, mcfg, cfg, frames[:N_FRAMES], card, "production drive",
+            state_out=f"{tmp}/state.npz")
+        state = check_state(system, engine, f"{tmp}/state.npz",
+                            timings.pop("state_save_s"), card)
     stages = breakdown(system, frames[-1], card, "production")
     stages.update({k: v for k, v in heads.items()
                    if k.endswith(("_ms", "_kernels"))})
@@ -1688,24 +2005,46 @@ def main(argv=None):
     stages.update(check_ba(record, cfg, card))
     stages.update(backend_breakdown(system, record, card))
     del system, record
+    torch.cuda.empty_cache()
+    # the same frames inline, in turns with a second threaded drive
+    # (threaded, inline, inline, threaded)
+    runs = {"threaded": [timings], "inline": []}
+    for mode, c in (("inline", cfg_inline), ("inline", cfg_inline),
+                    ("threaded", cfg)):
+        launches_again, system_again, _, t = drive_frontend(
+            engine, mcfg, c, frames[:N_FRAMES], card,
+            f"production drive, {mode}, run {len(runs[mode]) + 1}")
+        runs[mode].append(t)
+        del system_again
+        torch.cuda.empty_cache()
+    stages.update(compare_threaded_inline(runs, card, "production drive"))
 
     from mast3r_slam_torch.retrieval.database import RetrievalDatabase
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        db = RetrievalDatabase.from_checkpoint(
-            *forge_retrieval_files(tmp, args.seed, mcfg.enc_embed_dim),
-            device="cuda")
-    print(f"retrieval database: {db.codebook.size} x {db.codebook.dim} "
-          f"codebook on the card, forged and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
     loop = make_clip(args.seed, N_FRAMES_LOOP_OUT, IMG_HW, LOOP_SHIFT,
                      LOOP_TEXTURE)
-    launches_retr, system_retr, pairs, retrieval = drive_retrieval(
-        engine, mcfg, cfg, loop + loop[-2::-1], db, card)
-    retrieval.update(check_desc_global(system_retr, pairs[0], card))
-    del system_retr, db
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = forge_retrieval_files(tmp, args.seed, mcfg.enc_embed_dim)
+        t0 = time.perf_counter()
+        db = RetrievalDatabase.from_checkpoint(*files, device="cuda")
+        print(f"retrieval database: {db.codebook.size} x "
+              f"{db.codebook.dim} codebook on the card, loaded in "
+              f"{time.perf_counter() - t0:.1f} s")
+        launches_retr, system_retr, pairs, retrieval = drive_retrieval(
+            engine, mcfg, cfg, loop + loop[-2::-1], db, card)
+        retrieval.update(check_desc_global(system_retr, pairs[0], card))
+        del system_retr, db
+        torch.cuda.empty_cache()
+        # the same clip inline, with a fresh database of the same files
+        db = RetrievalDatabase.from_checkpoint(*files, device="cuda")
+        _, system_retr, _, retrieval_inline = drive_retrieval(
+            engine, mcfg, cfg_inline, loop + loop[-2::-1], db, card,
+            label="retrieval drive, inline")
+        del system_retr, db
+        torch.cuda.empty_cache()
+    retrieval.update(compare_threaded_inline(
+        {"threaded": [retrieval], "inline": [retrieval_inline]}, card,
+        "retrieval drive"))
     _, system_exact, _, timings_exact = drive_frontend(
         engine, mcfg, cfg_exact, frames[:N_FRAMES_REFERENCE_EXACT], card,
         "reference-exact drive")
@@ -1716,6 +2055,8 @@ def main(argv=None):
     del system_exact
     ate = drive_oracle(card)
     ate["loop_retrieval"] = drive_oracle_loop(card)
+    ate["threaded"] = drive_oracle_threaded(card)
+    state.update(drive_oracle_state(card))
 
     # the main path's launches: the production drive's and the retrieval
     # drive's, each counted from 0 over its own run
@@ -1762,7 +2103,11 @@ def main(argv=None):
     print(f"stages reference-exact: {json.dumps(stages_exact)}")
     print(f"retrieval: {json.dumps(retrieval)}")
     print(f"oracle ATE (m): {json.dumps(ate)}")
+    print(f"state: {json.dumps(state)}")
+    print(f"production drive, threaded, run 2, launches: "
+          f"{json.dumps(launches_again)}")
     print(json.dumps({"kernels": kernels}))
+    faulthandler.cancel_dump_traceback_later()
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

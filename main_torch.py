@@ -7,9 +7,12 @@ ASMK retrieval database and relocalization), loop
 ``SLAMSystem.process_frame`` over the frames, export the keyframe
 trajectory (TUM format), the point cloud (PLY) and the keyframe images,
 write the protocol rates (``--rates-out``) and score ATE against a ground
-truth.  The backend runs inline after each keyframe (JAX's
-``single_thread`` path).  A run that ends lost (in RELOC) says so and exits
-0, as ``main.py`` does.
+truth.  The backend runs on a thread under ``single_thread: False``
+(``config/base.yaml``) and inline after each keyframe under ``single_thread:
+True`` (the eval configs).  ``--state-out`` saves the SLAM state after the
+last frame and ``--resume-state`` restores one before the first (with
+``--start-frame``, a run in segments).  A run that ends lost (in RELOC)
+says so and exits 0, as ``main.py`` does.
 
     python3 main_torch.py --dataset <clip> --config config/base.yaml --no-viz
 
@@ -33,8 +36,6 @@ LATER_SLICES = {
     "int8_local_head": "int8 encoder slice (models/quant.py)",
     "tp": "multi-GPU slice (tensor-parallel network)",
     "backend_device": "multi-GPU slice (backend on a second card)",
-    "resume_state": "state and threads slice (save_state / load_state)",
-    "state_out": "state and threads slice (save_state / load_state)",
     "viz_port": "viewer slice (live WebGL viewer)",
     "profile_blocks": "per-block breakdown slice (utils/breakdown.py)",
 }
@@ -107,13 +108,19 @@ def parse_args(argv=None):
     p.add_argument("--reference-exact", action="store_true",
                    help="full-res matcher walk and per-component Huber: the "
                         "reference-exact bundle")
+    p.add_argument("--resume-state", default=None,
+                   help="SLAM-state file (save_state format, the port's or "
+                        "main.py's) to restore before the first frame; an "
+                        "empty retrieval database is replayed from its "
+                        "keyframes")
+    p.add_argument("--state-out", default=None,
+                   help="write the SLAM state after the last frame (a run "
+                        "in segments chains these with --start-frame)")
     # flags of main.py whose modules are later slices of the port
     p.add_argument("--int8-encoder", action="store_true")
     p.add_argument("--int8-local-head", action="store_true")
     p.add_argument("--tp", type=int, default=None)
     p.add_argument("--backend-device", type=int, default=None)
-    p.add_argument("--resume-state", default=None)
-    p.add_argument("--state-out", default=None)
     p.add_argument("--viz-port", type=int, default=None)
     p.add_argument("--profile-blocks", action="store_true")
     return p.parse_args(argv)
@@ -159,7 +166,8 @@ def run(system, dataset, args):
     dataset (``len``, ``dataset[i] -> (timestamp, image)``) and the parsed
     arguments (``max_frames``, ``start_frame``, ``diag_out``).  The next
     frame's host work (read, undistort, resize, normalise) runs on one
-    prefetch thread while the device works on the current one.  A frame
+    prefetch thread while the device works on the current one.  With
+    ``args.state_out`` the state is saved after the last frame.  A frame
     that loses tracking puts the system in RELOC, where the next frames try
     to relocalize, as in ``main.py``.  Returns the run's summary
     (``lost_at``: the first frame that lost tracking; ``lost_at_end``: the
@@ -206,8 +214,17 @@ def run(system, dataset, args):
         finally:
             if diag_f is not None:
                 diag_f.close()
-    lost_at_end = system.mode.name == "RELOC"
-    system.terminate()
+    try:
+        # the rounds still queued (a relocalization among them) end the run
+        system.drain()
+        lost_at_end = system.mode.name == "RELOC"
+        if args.state_out:
+            # before terminate, which leaves the mode TERMINATED
+            # (main.py:347)
+            system.save_state(args.state_out)
+            print(f"state saved to {args.state_out}")
+    finally:
+        system.terminate()
     wall = time.time() - t0
     trk = system.tracker
     rounds = system.stats["ba_rounds"]
@@ -360,14 +377,13 @@ def main(argv=None):
         else:
             print("[warn] retrieval checkpoint/codebook not found - "
                   "loop closure and relocalization proposals disabled")
-    if not config.get("single_thread", False):
-        print("[note] single_thread: False: the backend runs inline after "
-              "each keyframe (main.py's single_thread path); the threaded "
-              "backend is the state and threads slice")
-
     profiler = TimeProfiler(enabled=args.profile)
     system = SLAMSystem(config, engine, (h, w), K=K, retrieval=retrieval,
                         device=device, profiler=profiler)
+    if args.resume_state:
+        system.load_state(args.resume_state)
+        print(f"resumed from {args.resume_state}: {system.arena.n_size} "
+              f"keyframes, mode={system.mode}")
     summary = run(system, dataset, args)
     print(f"done: {summary['frames']} frames in {summary['seconds']:.1f}s "
           f"({summary['fps']:.2f} FPS)")

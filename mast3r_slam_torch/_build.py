@@ -5,7 +5,9 @@ with ``nvcc`` into its own shared library under ``_kernels_build/`` (listed
 in ``.gitignore``), then loaded with ``ctypes``.  The library's file name
 carries a hash of its source, so an edited kernel is never served stale.
 Nothing here runs at import time: the CPU tests import every module on a
-machine with no ``nvcc``.
+machine with no ``nvcc``.  The frontend and the backend thread launch the
+same kernels, so the first load and the launch counts are taken under
+locks.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -24,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -83,13 +88,25 @@ def build(names) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use.  Two
+    threads' first launches build it once: the second waits for the
+    first's ``nvcc``, which would otherwise write the same temporary file."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(lib_path(name)))
+                _loaded[name] = lib
     return lib
+
+
+def count_launch(fn) -> None:
+    """One more launch of ``fn``'s kernel: ``fn.launches += 1``, under a
+    lock, since a read-modify-write from two threads can lose a count."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def check(err: int, what: str) -> None:

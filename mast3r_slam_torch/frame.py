@@ -145,6 +145,7 @@ class KeyframeArena:
     N_updates: torch.Tensor  # (B,) int32
     feat: torch.Tensor       # (B, n_patches, feat_dim)
     pos: torch.Tensor        # (B, n_patches, 2)
+    K: torch.Tensor          # (3, 3) intrinsics, zeros when uncalibrated
     n_size: int = 0
 
     @property
@@ -157,8 +158,9 @@ class KeyframeArena:
 
 
 def make_arena(buffer: int, h: int, w: int, n_patches: int, feat_dim: int,
-               device=None) -> KeyframeArena:
-    """(frame.py:210)"""
+               device=None, K=None) -> KeyframeArena:
+    """(frame.py:210)  ``K`` (3, 3): a copy goes into the arena's ``K``
+    field, zeros when None (pipeline.py:96)."""
     kw = dict(device=device)
     return KeyframeArena(
         frame_id=torch.zeros((buffer,), dtype=torch.int32, **kw),
@@ -170,13 +172,16 @@ def make_arena(buffer: int, h: int, w: int, n_patches: int, feat_dim: int,
         N_updates=torch.zeros((buffer,), dtype=torch.int32, **kw),
         feat=torch.zeros((buffer, n_patches, feat_dim), **kw),
         pos=torch.zeros((buffer, n_patches, 2), dtype=torch.int64, **kw),
+        K=torch.zeros((3, 3), **kw) if K is None else
+        torch.as_tensor(K, dtype=torch.float32).to(device).clone(),
     )
 
 
 def arena_grow(arena: KeyframeArena, new_buffer: int) -> KeyframeArena:
     """A copy of the arena with ``new_buffer`` slots, the new ones zero
-    with identity poses (frame.py:227).  The pipeline grows the store by
-    power-of-two buckets before an append would pass its capacity."""
+    with identity poses, ``K`` carried (frame.py:227).  The pipeline grows
+    the store by power-of-two buckets before an append would pass its
+    capacity."""
     if new_buffer < arena.buffer:
         raise ValueError(f"arena_grow: {new_buffer} < {arena.buffer}")
     pad = new_buffer - arena.buffer
@@ -240,6 +245,25 @@ def arena_pop_last(arena: KeyframeArena) -> KeyframeArena:
     next append."""
     arena.n_size = max(arena.n_size - 1, 0)
     return arena
+
+
+def arena_snapshot(arena: KeyframeArena) -> KeyframeArena:
+    """A view of the arena that later in-place writes do not change: the
+    rows a backend round reads while the frontend goes on writing
+    (pipeline.py:236).  Rows below ``n_size - 1`` change only in
+    ``T_WC`` once a newer keyframe exists, but the frontend fuses into row
+    ``n_size - 1`` every frame and a tensor cannot lend some rows and own
+    others, so ``X`` and ``C`` are copied up to ``n_size``, and ``T_WC``,
+    ``N`` and ``N_updates`` whole (B rows of a few bytes).  ``frame_id``,
+    ``uimg``, ``feat``, ``pos`` and ``K`` are the live tensors: the
+    frontend writes their rows below ``n_size`` only with the values they
+    hold, and ``arena_grow`` replaces the live arena's tensors, not
+    these."""
+    n = arena.n_size
+    return dataclasses.replace(
+        arena, T_WC=arena.T_WC.clone(), X=arena.X[:n].clone(),
+        C=arena.C[:n].clone(), N=arena.N.clone(),
+        N_updates=arena.N_updates.clone())
 
 
 def arena_update_poses(arena: KeyframeArena, T_WCs, idx) -> KeyframeArena:

@@ -91,7 +91,7 @@ def flash_attention(q, k, v):
         B, H, Nq, Nk, Dh, _DTYPES[q.dtype], strides, 1.0 / (Dh ** 0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_fwd")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

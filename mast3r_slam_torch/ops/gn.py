@@ -191,7 +191,7 @@ def gn_sums(pts, scal, huber_k):
         partial.data_ptr(), G, out.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream)
     _build.check(err, "gn_accumulate")
-    gn_sums.launches += 1
+    _build.count_launch(gn_sums)
     return out
 
 
@@ -275,7 +275,7 @@ def gn_solve_launch(pts, T_init, cfg):
         scratch.data_ptr(), _MAX_BLOCKS, out.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream)
     _build.check(err, "gn_solve")
-    gn_solve.launches += 1
+    _build.count_launch(gn_solve)
     return out
 
 

@@ -246,7 +246,7 @@ def pack_rows_into(out, flat, offsets, row0: int = 0):
             K, *plan.c_args,
             torch.cuda.current_stream(flat.device).cuda_stream)
     _build.check(err, "pack_rows")
-    pack_rows.launches += 1
+    _build.count_launch(pack_rows)
     return out
 
 

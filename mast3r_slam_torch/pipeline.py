@@ -4,18 +4,30 @@ Mirrors ``mast3r_slam_tpu/pipeline.py``: the mode machine {INIT,
 TRACKING, RELOC, TERMINATED}, keyframe decisions in the uncalibrated and
 the calibrated mode, the backend round of every new keyframe (a
 consecutive factor-graph edge, the retrieval's edges and the pointmap BA,
-``_process_task``) and relocalization through the retrieval object
-(``NullRetrieval`` or an ASMK ``RetrievalDatabase``).
+``_process_task``), relocalization through the retrieval object
+(``NullRetrieval`` or an ASMK ``RetrievalDatabase``) and SLAM-state save /
+load (``save_state`` / ``load_state``, JAX's file format).
 
-The backend runs inline: after each keyframe, ``process_frame`` runs its
-round before it returns, which is the JAX package's deterministic
-``single_thread: True`` path.  JAX runs the same rounds on a thread when
-``single_thread`` is False, and its results then depend on timing; the
-threaded backend (with its task queue), state files and the backend on a
-second card are later slices of the port.
+``single_thread: True`` runs each round inline in the ``process_frame``
+that queued it, the deterministic path of the eval configs.  With
+``single_thread: False`` (``config/base.yaml``) a backend thread takes
+keyframe indices from a queue, as in JAX; a lost frame posts a reloc
+sentinel that the thread coalesces, and ``drain`` / ``terminate`` wait for
+the queue and re-raise the thread's first error.  The two threads share
+the arena under ``_lock``: the frontend writes it in place, and a round
+reads an ``arena_snapshot`` taken under the lock.  Both threads launch on
+the stream that was current when the system was built, so the card runs
+their work in the order it was queued.  The backend on a second card is a
+later slice of the port.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import queue
+import threading
+import types
 
 import numpy as np
 import torch
@@ -31,6 +43,7 @@ from .frame import (
     arena_grow,
     arena_pop_last,
     arena_set,
+    arena_snapshot,
     arena_update_poses,
     make_arena,
     update_pointmap,
@@ -85,7 +98,8 @@ class SLAMSystem:
         self.diag = False   # per-frame pose in the info dict
         buffer = buffer or int(cfg.get("map", {}).get("buffer", 512))
         self.arena: KeyframeArena = make_arena(
-            buffer, h, w, engine.n_patches, engine.feat_dim, self.device)
+            buffer, h, w, engine.n_patches, engine.feat_dim, self.device,
+            K=self.K)
         # edge_query_subsample 2 matches edges on the (::2, ::2) grid only,
         # which BA reads exactly at points_subsample 4; at any other stride
         # BA would read never-matched pixels, so reset it (pipeline.py:107)
@@ -124,12 +138,55 @@ class SLAMSystem:
                       "reloc": 0, "ba_rounds": 0, "retrieval_edges": 0,
                       "retrieval_proposals": 0}
 
+        # backend plumbing (pipeline.py:210): keyframe indices, -1 for a
+        # relocalization request; _lock guards the arena, _edge_reuse and
+        # _reloc_frame, which both threads touch
+        self.single_thread = bool(cfg.get("single_thread", False))
+        self.tasks: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._terminate = False
+        self._backend_error: Exception | None = None
+        self._reloc_frame: Frame | None = None
+        self._backend_thread: threading.Thread | None = None
+        if not self.single_thread:
+            # the thread launches on this thread's current stream, so the
+            # card runs both threads' work in the order it was queued, and
+            # the caching allocator cannot hand a block one thread freed to
+            # the other while queued kernels still read it; it runs
+            # PyTorch's CPU ops on as many threads as this one
+            self._stream = torch.cuda.current_stream(self.device) \
+                if self.device.type == "cuda" else None
+            self._num_threads = torch.get_num_threads()
+            self._backend_thread = threading.Thread(
+                target=self._backend_loop, name="slam-backend", daemon=True)
+            self._backend_thread.start()
+
+    # ------------------------------------------------------------------
+    # Arena access (pipeline.py:236-268): the frontend writes under _lock,
+    # a backend round reads a snapshot taken under it
+    # ------------------------------------------------------------------
+
+    def _snapshot(self) -> KeyframeArena:
+        """The arena as a backend round reads it (pipeline.py:605): the
+        live arena when rounds run inline, else an ``arena_snapshot`` taken
+        under the lock, one consistent state of the frontend's writes."""
+        if self.single_thread:
+            return self.arena
+        with self._lock:
+            return arena_snapshot(self.arena)
+
     def _arena_append(self, frame: Frame):
         """Append a keyframe, first growing the arena by a power of two when
         it is full (pipeline.py:245)."""
-        if self.arena.n_size >= self.arena.buffer:
-            self.arena = arena_grow(self.arena, 2 * self.arena.buffer)
-        arena_append(self.arena, frame)
+        with self._lock:
+            if self.arena.n_size >= self.arena.buffer:
+                self.arena = arena_grow(self.arena, 2 * self.arena.buffer)
+            arena_append(self.arena, frame)
+
+    def _arena_set_last(self, kf: Frame):
+        """Write the fused last keyframe back (pipeline.py:262)."""
+        with self._lock:
+            arena_set(self.arena, self.arena.n_size - 1, kf)
 
     def prepare_image(self, img: np.ndarray):
         """Resize + ImgNorm on the host (pipeline.py:303).  Returns
@@ -186,14 +243,15 @@ class SLAMSystem:
             frame = self._mono_frame(frame)
             self._arena_append(frame)
             self.stats["keyframes"] += 1
-            self._process_task(self.arena.n_size - 1)
+            self._queue_backend(self.arena.n_size - 1)
             self.mode = Mode.TRACKING
             self.last_T_WC = frame.T_WC
             return info
 
         if self.mode == Mode.TRACKING:
-            last = self.arena.n_size - 1
-            kf = arena_get(self.arena, last)
+            with self._lock:
+                last = self.arena.n_size - 1
+                kf = arena_get(self.arena, last)
             with self.profiler.timer("track"):
                 new_kf, frame, kf, try_reloc, reuse = \
                     self.tracker.track(frame, kf)
@@ -203,7 +261,7 @@ class SLAMSystem:
                 self.stats["skipped"] += 1
                 info["mode"] = "TRACKING->RELOC"
                 return info
-            arena_set(self.arena, last, kf)
+            self._arena_set_last(kf)
             self.stats["tracked"] += 1
             self.last_T_WC = frame.T_WC
             if self.diag:
@@ -230,36 +288,98 @@ class SLAMSystem:
                     # the edge (i = n-2, j = n-1): Qff is the new
                     # keyframe's own confidence (Qjj), Qkf the old
                     # keyframe's cross confidence (Qij) (pipeline.py:413)
-                    self._edge_reuse = {
-                        "pair": (n - 2, n - 1),
-                        "idx_j2i": idx_f2k, "valid_i": vm,
-                        "Qjj": Qff, "Qij": Qkf,
-                        "desc8_frame": d8f, "desc8_kf": d8k,
-                    }
-                self._process_task(n - 1)
+                    with self._lock:
+                        self._edge_reuse = {
+                            "pair": (n - 2, n - 1),
+                            "idx_j2i": idx_f2k, "valid_i": vm,
+                            "Qjj": Qff, "Qij": Qkf,
+                            "desc8_frame": d8f, "desc8_kf": d8k,
+                        }
+                self._queue_backend(n - 1)
             return info
 
         if self.mode == Mode.RELOC:
             frame = self._mono_frame(frame)
             self.stats["reloc"] += 1
-            if self._relocalization(frame):
-                self.mode = Mode.TRACKING
+            if self.single_thread:
+                if self._relocalization(frame):
+                    self.mode = Mode.TRACKING
+            else:
+                # the newest lost frame and a sentinel; the backend flips
+                # the mode back when one relocalizes (pipeline.py:447)
+                with self._lock:
+                    self._reloc_frame = frame
+                self.tasks.put(-1)
             return info
 
         raise RuntimeError(f"invalid mode {self.mode}")
 
     # ------------------------------------------------------------------
-    # Backend (pipeline.py:459-603), run inline
+    # Backend (pipeline.py:459-685)
     # ------------------------------------------------------------------
+
+    def _queue_backend(self, idx: int):
+        """(pipeline.py:459)  Inline, the round runs before this returns."""
+        self.tasks.put(idx)
+        if self.single_thread:
+            while not self.tasks.empty():
+                self._backend_once()
+
+    def _backend_loop(self):
+        """The backend thread (pipeline.py:465): rounds until
+        ``terminate``.  After an exception it takes no more rounds, since
+        the graph may be half written, but marks each queued task done so
+        that ``drain`` returns and re-raises the error."""
+        torch.set_num_threads(self._num_threads)
+        with contextlib.ExitStack() as ctx:
+            if self._stream is not None:
+                ctx.enter_context(torch.cuda.device(self.device))
+                ctx.enter_context(torch.cuda.stream(self._stream))
+            while not self._terminate:
+                try:
+                    idx = self.tasks.get(timeout=0.01)
+                except queue.Empty:
+                    continue
+                if self._backend_error is not None:
+                    self.tasks.task_done()
+                    continue
+                try:
+                    self._process_task(idx)
+                except Exception as e:  # re-raised by drain / terminate
+                    self._backend_error = e
+                finally:
+                    self.tasks.task_done()
+
+    def _backend_once(self):
+        """Run one queued task inline, if there is one (pipeline.py:485)."""
+        try:
+            idx = self.tasks.get_nowait()
+        except queue.Empty:
+            return
+        try:
+            self._process_task(idx)
+        finally:
+            self.tasks.task_done()
 
     def _process_task(self, idx: int):
         """One backend round for keyframe ``idx`` (pipeline.py:498): the
         consecutive edge (idx-1, idx) and the retrieval's edges, then the
-        BA solve."""
+        BA solve, all on one snapshot of the arena.  ``idx`` -1 is a
+        relocalization request: the frontend posts one per lost frame, so
+        once one has relocalized the rest are dropped."""
+        if idx == -1:
+            if self.mode != Mode.RELOC:
+                return
+            with self._lock:
+                frame = self._reloc_frame
+            if self._relocalization(frame):
+                self.mode = Mode.TRACKING
+            return
         kf_idx = [idx - 1] if idx >= 1 else []
-        frame = arena_get(self.arena, idx)
+        snap = self._snapshot()
+        frame = arena_get(snap, idx)
         kf_idx += self.retrieval.update(
-            frame, self.arena, add_after_query=True,
+            frame, snap, add_after_query=True,
             k=self.cfg["retrieval"]["k"],
             min_thresh=self.cfg["retrieval"]["min_thresh"])
         kf_idx = list(set(kf_idx) - {idx})
@@ -267,33 +387,36 @@ class SLAMSystem:
         self.stats["retrieval_proposals"] += len(set(kf_idx) - {idx - 1})
         ne0 = self.graph.n_edges
         if kf_idx:
-            reuse = self._edge_reuse
-            if reuse is not None and reuse["pair"] == (idx - 1, idx):
-                self._edge_reuse = None
-            else:
-                reuse = None     # a stale bundle of another pair
+            with self._lock:
+                reuse = self._edge_reuse
+                if reuse is not None and reuse["pair"] == (idx - 1, idx):
+                    self._edge_reuse = None
+                else:
+                    reuse = None     # a stale bundle of another pair
             with self.profiler.timer("add_factors"):
                 self.graph.add_factors(
-                    self.arena, kf_idx, [idx] * len(kf_idx),
+                    snap, kf_idx, [idx] * len(kf_idx),
                     float(self.cfg["local_opt"]["min_match_frac"]),
                     reuse=reuse)
             g = self.graph
             # accepted non-consecutive edges
             self.stats["retrieval_edges"] += int(np.sum(
                 g.ii[ne0:g.n_edges] != g.jj[ne0:g.n_edges] - 1))
-        self._solve_graph()
+        self._solve_graph(snap)
 
-    def _solve_graph(self):
-        """Solve, then write only the optimised non-pinned keyframes' poses
-        (pipeline.py:573)."""
+    def _solve_graph(self, snap: KeyframeArena):
+        """Solve on the snapshot, then write only the optimised non-pinned
+        keyframes' poses into the live arena (pipeline.py:573): a keyframe
+        the frontend appended meanwhile keeps its pose."""
         with self.profiler.timer("ba_calib" if self.use_calib else
                                  "ba_rays"):
             res = self.graph.solve_poses(
-                self.arena, "calib" if self.use_calib else "ray")
+                snap, "calib" if self.use_calib else "ray")
             if res is None:
                 return
             upd, Twc_new, stats = res
-            arena_update_poses(self.arena, Twc_new, upd)
+            with self._lock:
+                arena_update_poses(self.arena, Twc_new, upd)
         self.stats["ba_rounds"] += 1
         self.ba_iters_total += int(stats[0])
         self.ba_ok_total += int(bool(stats[2]))
@@ -306,35 +429,179 @@ class SLAMSystem:
         self.reloc_attempts += 1
         retr = self.cfg["retrieval"]
         kf_idx = list(self.retrieval.update(
-            frame, self.arena, add_after_query=False, k=retr["k"],
+            frame, self._snapshot(), add_after_query=False, k=retr["k"],
             min_thresh=retr["min_thresh"]))
         if not kf_idx:
             return False
         self._arena_append(frame)
-        n_kf = self.arena.n_size
+        snap = self._snapshot()
+        n_kf = snap.n_size
         success = self.graph.add_factors(
-            self.arena, [n_kf - 1] * len(kf_idx), kf_idx,
+            snap, [n_kf - 1] * len(kf_idx), kf_idx,
             float(self.cfg["reloc"]["min_match_frac"]),
             is_reloc=bool(self.cfg["reloc"]["strict"]))
         if success:
-            self.retrieval.update(frame, self.arena, add_after_query=True,
+            self.retrieval.update(frame, snap, add_after_query=True,
                                   k=retr["k"], min_thresh=retr["min_thresh"])
-            self.arena.T_WC[n_kf - 1] = self.arena.T_WC[kf_idx[0]]
-            self.last_T_WC = self.arena.T_WC[n_kf - 1].clone()
+            with self._lock:
+                self.arena.T_WC[n_kf - 1] = self.arena.T_WC[kf_idx[0]]
+                self.last_T_WC = self.arena.T_WC[n_kf - 1].clone()
             self.stats["keyframes"] += 1
             self.tracker.reset_idx_f2k()
-            self._solve_graph()
+            self._solve_graph(self._snapshot())
             return True
-        arena_pop_last(self.arena)
-        # the next keyframe reuses this slot: a stored table would be stale
-        self.graph.desc_store.pop(self.arena.n_size, None)
+        with self._lock:
+            arena_pop_last(self.arena)
+            # the next keyframe reuses this slot: a stored table would be
+            # stale
+            self.graph.desc_store.pop(self.arena.n_size, None)
         return False
 
+    # ------------------------------------------------------------------
+    # SLAM-state checkpoint / resume (pipeline.py:687-813)
+    # ------------------------------------------------------------------
+
+    def save_state(self, path):
+        """Write the SLAM state to an ``.npz`` in JAX's format
+        (pipeline.py:687), after the queued rounds: every arena field as
+        ``arena_<field>`` (``pos`` int32, ``n_size`` an int32 scalar), the
+        mode and last pose, the edge store at its full ``max_edges`` rows,
+        the stats by name and the GN / BA cadence counters.  The
+        ``desc_global`` tables are not saved, as in JAX."""
+        self.drain()
+        g = self.graph
+        with self._lock:
+            arena = self.arena
+            arrays = {}
+            for f in dataclasses.fields(arena):
+                v = getattr(arena, f.name)
+                if f.name == "n_size":
+                    arrays["arena_n_size"] = np.asarray(v, np.int32)
+                elif f.name == "pos":
+                    arrays["arena_pos"] = v.cpu().numpy().astype(np.int32)
+                else:
+                    arrays[f"arena_{f.name}"] = v.cpu().numpy()
+
+        def host(t):
+            return t.cpu().numpy()
+
+        np.savez_compressed(
+            path,
+            mode=self.mode.value,
+            last_T_WC=host(self.last_T_WC),
+            graph_ii=g.ii, graph_jj=g.jj, graph_n_edges=g.n_edges,
+            graph_idx_ii2jj=host(g.idx_ii2jj),
+            graph_idx_jj2ii=host(g.idx_jj2ii),
+            graph_vmj=host(g.valid_match_j),
+            graph_vmi=host(g.valid_match_i),
+            graph_Qj=host(g.Q_ii2jj),
+            graph_Qi=host(g.Q_jj2ii),
+            stats=np.asarray([self.stats[k] for k in sorted(self.stats)],
+                             np.int64),
+            stats_keys=np.asarray(sorted(self.stats)),
+            cadence=np.asarray([self.ba_iters_total, self.ba_ok_total,
+                                self.tracker.gn_iters_total,
+                                self.tracker.gn_frames], np.int64),
+            **arrays,
+        )
+
+    def load_state(self, path):
+        """Restore a ``save_state`` file, the port's or JAX's
+        (pipeline.py:726): a float ``uimg`` of older files is requantised,
+        every pose re-normalised, TERMINATED resumes as TRACKING, the edge
+        store takes the file's ``max_edges`` (the pregather cache is
+        reallocated and dropped), stats missing ``stats_keys`` are read in
+        the five-key legacy order, and an empty retrieval database is
+        replayed from the restored keyframes' features."""
+        d = np.load(path)
+        dev = self.device
+        kw = {}
+        for f in dataclasses.fields(self.arena):
+            key = f"arena_{f.name}"
+            if key not in d:
+                continue
+            v = d[key]
+            if f.name == "n_size":
+                kw["n_size"] = int(v)
+                continue
+            if f.name == "uimg" and np.issubdtype(v.dtype, np.floating):
+                v = np.uint8(np.round(np.clip(v, 0.0, 1.0) * 255.0))
+            kw[f.name] = torch.from_numpy(np.ascontiguousarray(v)).to(
+                dev, getattr(self.arena, f.name).dtype)
+        arena = dataclasses.replace(self.arena, **kw)
+        arena.T_WC = sim3.normalize(arena.T_WC)
+        with self._lock:
+            self.arena = arena
+        if "cadence" in d:
+            cad = d["cadence"]
+            self.ba_iters_total = int(cad[0])
+            self.ba_ok_total = int(cad[1])
+            self.tracker.gn_iters_total = int(cad[2])
+            self.tracker.gn_frames = int(cad[3])
+        self.mode = Mode(int(d["mode"]))
+        if self.mode == Mode.TERMINATED:
+            self.mode = Mode.TRACKING
+        self.last_T_WC = sim3.normalize(
+            torch.from_numpy(d["last_T_WC"]).to(dev, torch.float32))
+        g = self.graph
+        g.ii = d["graph_ii"].astype(np.int32)
+        g.jj = d["graph_jj"].astype(np.int32)
+        g.n_edges = int(d["graph_n_edges"])
+        g.max_edges = int(g.ii.shape[0])
+        # the database is not in the file: replay the restored keyframes'
+        # features into an empty one, so that proposals against them keep
+        # firing (pipeline.py:772)
+        if getattr(self.retrieval, "kf_counter", None) == 0:
+            for r in range(arena.n_size):
+                self.retrieval.update(types.SimpleNamespace(
+                    feat=arena.feat[r]), add_after_query=True, k=0)
+        (g.idx_ii2jj, g.idx_jj2ii, g.valid_match_j, g.valid_match_i,
+         g.Q_ii2jj, g.Q_jj2ii) = (
+            torch.from_numpy(d[k]).to(g.dev, old.dtype)
+            for k, old in zip(("graph_idx_ii2jj", "graph_idx_jj2ii",
+                               "graph_vmj", "graph_vmi", "graph_Qj",
+                               "graph_Qi"), g._stores()))
+        if g.cache_pre:
+            if g._pre_fresh.shape[0] != g.max_edges:
+                g._pre_fresh = np.zeros((g.max_edges,), bool)
+            g.invalidate_cache()
+        keys = ([str(k) for k in d["stats_keys"]] if "stats_keys" in d
+                else ["ba_rounds", "keyframes", "reloc", "skipped",
+                      "tracked"])
+        for k, v in zip(keys, d["stats"]):
+            if k in self.stats:
+                self.stats[k] = int(v)
+        self.tracker.reset_idx_f2k()
+
     def drain(self):
-        """(pipeline.py:815)  Nothing to wait for: every round ran inline
-        in the ``process_frame`` that queued it."""
+        """Wait until every queued round is done, the one the backend
+        thread has taken included (pipeline.py:815), then re-raise the
+        thread's error, if it had one.  Raises if the thread has ended
+        with tasks still queued, which would otherwise never be done."""
+        if self.single_thread:
+            while not self.tasks.empty():
+                self._backend_once()
+        else:
+            done = self.tasks.all_tasks_done
+            with done:
+                while self.tasks.unfinished_tasks:
+                    if not self._backend_thread.is_alive():
+                        raise RuntimeError(
+                            "the backend thread ended with "
+                            f"{self.tasks.unfinished_tasks} tasks queued")
+                    done.wait(0.5)
+        err = self._backend_error
+        if err is not None:
+            self._backend_error = None
+            raise err
 
     def terminate(self):
-        """End of the run (pipeline.py:830)."""
-        self.drain()
+        """End of the run (pipeline.py:830): drain, then stop the backend
+        thread, also when the drain raises."""
+        try:
+            self.drain()
+        finally:
+            self._terminate = True
+            if self._backend_thread is not None:
+                self._backend_thread.join(timeout=5)
         self.mode = Mode.TERMINATED

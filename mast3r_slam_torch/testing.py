@@ -7,12 +7,14 @@ whole system against a known trajectory with the synthetic-scene harness
 (``SyntheticSequence`` + ``OracleEngine``, testing.py:25-420, rendered in
 numpy with the poses as torch tensors), with the oracle's q8 world
 descriptors for the descriptor paths (``export_desc``) and an ASMK
-database over its view signatures (``make_oracle_retrieval``).
+database over its view signatures (``make_oracle_retrieval``), and a
+drain of the threaded backend that cannot hang (``drain_within``).
 """
 
 from __future__ import annotations
 
 import pathlib
+import time
 
 import numpy as np
 import torch
@@ -523,3 +525,18 @@ def make_oracle_retrieval(seq: SyntheticSequence, engine: OracleEngine,
     codebook = Codebook.train(feats, codebook_size, n_iter=5,
                               device=engine.device)
     return RetrievalDatabase(params, codebook, nfeat=nfeat)
+
+
+def drain_within(system, seconds: float):
+    """``system.drain()`` with a deadline: raises ``TimeoutError`` if the
+    backend still has queued rounds after ``seconds`` (a stuck round would
+    leave ``drain`` waiting for ever), else drains and re-raises the
+    backend's error, if any."""
+    end = time.monotonic() + seconds
+    while system.tasks.unfinished_tasks:
+        if time.monotonic() > end:
+            raise TimeoutError(f"the backend still has "
+                               f"{system.tasks.unfinished_tasks} rounds "
+                               f"queued after {seconds} s")
+        time.sleep(0.001)
+    system.drain()

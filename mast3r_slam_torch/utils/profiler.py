@@ -7,11 +7,17 @@ time from the rest, under the same section names (``create_frame``,
 per section ends PyTorch's asynchronous enqueueing.  The JAX package keeps
 one process-global instance; here the caller creates a ``TimeProfiler`` and
 hands it to ``SLAMSystem``.
+
+A profiled run is a diagnosis mode.  The backend thread times its sections
+too: the sums are taken under a lock, and its ``torch.cuda.synchronize()``
+waits for all of the card's queued work, the frontend's included, so a
+section's time then holds whatever the other thread queued meanwhile.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
 
@@ -23,6 +29,7 @@ class TimeProfiler:
         self.enabled = enabled
         self.times = defaultdict(float)
         self.counts = defaultdict(int)
+        self._lock = threading.Lock()
 
     def enable(self):
         self.enabled = True
@@ -31,8 +38,9 @@ class TimeProfiler:
         self.enabled = False
 
     def reset(self):
-        self.times.clear()
-        self.counts.clear()
+        with self._lock:
+            self.times.clear()
+            self.counts.clear()
 
     @staticmethod
     def _sync():
@@ -41,6 +49,10 @@ class TimeProfiler:
 
     @contextlib.contextmanager
     def timer(self, name: str):
+        """Add the section's time to ``name``, the card synchronised before
+        and after it.  From the backend thread the synchronise also waits
+        for the frontend's queued work (and the frontend's for the
+        backend's): a profiled run diagnoses, it is not timed as a run."""
         if not self.enabled:
             yield
             return
@@ -50,15 +62,18 @@ class TimeProfiler:
             yield
         finally:
             self._sync()   # the section owns its device time
-            self.times[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.times[name] += dt
+                self.counts[name] += 1
 
     def get_stats(self):
-        return {
-            k: {"total_s": self.times[k], "count": self.counts[k],
-                "mean_ms": 1e3 * self.times[k] / max(self.counts[k], 1)}
-            for k in self.times
-        }
+        with self._lock:
+            return {
+                k: {"total_s": self.times[k], "count": self.counts[k],
+                    "mean_ms": 1e3 * self.times[k] / max(self.counts[k], 1)}
+                for k in self.times
+            }
 
     def print_summary(self):
         """Sections by total time, then network (encode + decode) against

@@ -493,26 +493,37 @@ def test_main_torch_oracle_end_to_end(clip, tmp_path, monkeypatch, capsys,
 def test_main_torch_says_the_backend_runs_inline(clip, tmp_path,
                                                  monkeypatch, capsys):
     """``config/base.yaml`` says ``single_thread: False``: ``main_torch.py``
-    prints one line saying the backend runs inline, and runs it."""
+    runs the backend on a thread, as ``main.py`` does, prints no note that
+    it runs inline, and the thread's BA rounds reach the printed stats."""
     _, _, d = clip
     monkeypatch.chdir(tmp_path)
     root = main_torch.pathlib.Path(main_torch.__file__).parent
     (tmp_path / "config").symlink_to(root / "config")
+    systems = []
+    run = main_torch.run
+
+    def spy(system, dataset, args):
+        systems.append(system)
+        assert system._backend_thread.is_alive()
+        return run(system, dataset, args)
+
+    monkeypatch.setattr(main_torch, "run", spy)
     rc = main_torch.main(["--dataset", str(d), "--config", "config/base.yaml",
                           "--oracle", "--cpu", "--no-viz", "--max-frames",
                           "6", "--save-as", "run"])
     out = capsys.readouterr().out
     assert rc == 0
-    notes = [ln for ln in out.splitlines()
-             if "the backend runs inline after each keyframe" in ln]
-    assert len(notes) == 1 and "single_thread: False" in notes[0]
+    (system,) = systems
+    assert not system.single_thread
+    assert not system._backend_thread.is_alive()    # terminate ended it
+    assert "runs inline" not in out
+    assert system.stats["ba_rounds"] > 0
     assert "ba_rounds " in out and "ba_rounds 0 " not in out
 
 
 @pytest.mark.parametrize("flag", [
     ["--int8-encoder"], ["--int8-local-head"], ["--tp", "2"],
-    ["--backend-device", "0"], ["--resume-state", "s.npz"],
-    ["--state-out", "s.npz"], ["--viz-port", "8089"], ["--profile-blocks"],
+    ["--backend-device", "0"], ["--viz-port", "8089"], ["--profile-blocks"],
     []],
     ids=lambda f: f[0] if f else "without --no-viz")
 def test_main_torch_refuses_later_slices(flag):

@@ -144,7 +144,10 @@ def _run_port(sd, cfg, frames, matches=None, edges=None,
     """The port's ``SLAMSystem``; with ``matches`` (one (idx_f2k, valid)
     pair per tracked frame) the tracker's matcher idx_f2k and validity are
     replaced by those, and with ``edges`` (the JAX graph's edge store) the
-    backend's edge matches (warped or symmetric) by JAX's, edge by edge."""
+    backend's edge matches (warped or symmetric) by JAX's, edge by edge.
+    The backend runs inline (``single_thread``), as on the JAX side."""
+    cfg = copy.deepcopy(cfg)
+    cfg["single_thread"] = True
     model = MASt3R(MASt3RConfig.tiny(head_dtype=head_dtype))
     model.load_state_dict(sd)
     engine = InferenceEngine(model, (H, W),
