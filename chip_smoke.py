@@ -45,7 +45,19 @@ call.  Then it drives the port as a user would:
   saved at frame 8, resumed and finished against the uninterrupted run;
 * a stage breakdown of one tracking step and of the backend: a round's
   time, BA iterations, kernels per BA iteration, and the frame time of a
-  keyframe against a plain tracked frame.
+  keyframe against a plain tracked frame; and ``--profile-blocks``'
+  per-sub-block breakdown of the ViT-L network (``utils/breakdown.py``)
+  beside the measured encode and decode stages;
+* the int8 path (``main_quantized_torch.py``, ``models/quant.py``): the
+  quantised weights on the card against the CPU's, bitwise; the int32
+  accumulators of the six int8 products of the main path against the
+  CPU's, bitwise, each product timed beside the bf16 ``Dense`` of its
+  shape and their bounds; the ViT-L int8 encode against bf16 (cosine,
+  relative error, time, device busy) and a small model's on the card
+  against the CPU; one decode with the int8 local-feature head against the
+  bf16 heads; and ``main_torch.run`` over the production drive's frames
+  with the int8 encoder, threaded, its launches counted as the production
+  drive's and its frame times and poses beside the bf16 drive's.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 Exits non-zero, printing no result, when any phase fails, when the whole
@@ -66,9 +78,11 @@ import time
 
 import numpy as np
 
-# Dense data-sheet peaks (bf16 tensor-core FLOP/s, device-memory bytes/s)
-# of the card the port runs on, by the name the driver reports.
+# Dense data-sheet peaks (bf16 tensor-core FLOP/s, device-memory bytes/s;
+# int8 tensor-core OP/s) of the card the port runs on, by the name
+# torch.cuda.get_device_name gives.
 _PEAKS = {"NVIDIA H100 80GB HBM3": (989e12, 3.35e12)}
+_INT8_PEAKS = {"NVIDIA H100 80GB HBM3": 1979e12}
 
 ATTN_SHAPES = [  # (B, H, Nq, Nk, Dh)
     (1, 16, 768, 768, 64),   # encoder self-attention, ViT-L 384x512
@@ -112,6 +126,16 @@ STORE = ("idx_ii2jj", "idx_jj2ii", "valid_match_j", "valid_match_i",
          "Q_ii2jj", "Q_jj2ii")
 # acceptance bounds of bf16 heads against a reference (tests/test_model.py)
 HEAD_COS_MIN, HEAD_REL_DEPTH_MAX, HEAD_REL_CONF_MAX = 0.999, 0.02, 0.05
+# the int8 encoder against the fp one and the int8 local head against the
+# fp heads (tests/test_quant.py:29-32, 83-87); the small model's int8
+# encode on the card against the CPU, of the features' scale (read 3.5e-2
+# on features up to ~3 on an H100: 8.3e-3 of the scale); X and C of a
+# decode with the int8 local head against the bf16 heads, of their scale
+# (read 0: the same DPT on the same tokens)
+INT8_COS_MIN, INT8_REL_MAX = 0.99, 0.15
+INT8_DESC_COS_MIN, INT8_Q_REL_MAX = 0.99, 0.1
+INT8_SMALL_TOL = 2e-2
+INT8_XC_ATOL = 1e-5
 
 
 def card_info():
@@ -759,6 +783,308 @@ def check_heads(engine, sd, frames, card):
     del eng32, model32
     torch.cuda.empty_cache()
     return out
+
+
+def host_us(fn, reps=50):
+    """Host time of one ``fn()`` in microseconds: the mean over ``reps``
+    calls on the host's clock, the card held busy by a spin kernel so that
+    no call waits for it (what a host-paced frame pays for the call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def timed_in_turns(label, fns, card):
+    """Two versions of one call timed in turns (a, b, b, a): each turn's
+    CUDA-event time (``time_ms``, mean of 5 after a warm-up) and host time
+    (``host_us``, mean of 3); then one traced call of each, its device busy
+    time and kernel count (``device_busy``).  ``fns`` maps each version's
+    tag to the call."""
+    (a, fa), (b, fb) = fns.items()
+    out = {f"{label}_{t}_{k}": [] for t in fns for k in ("ms", "host_ms")}
+    for tag, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        out[f"{label}_{tag}_ms"].append(time_ms(fn, reps=5, warmup=1))
+        out[f"{label}_{tag}_host_ms"].append(host_us(fn, reps=3) / 1e3)
+    for tag, fn in fns.items():
+        print(f"{label}, {tag}: {_r(out[f'{label}_{tag}_ms'])} ms, host "
+              f"time {_r(out[f'{label}_{tag}_host_ms'])} ms (in turns "
+              f"{a}, {b}, {b}, {a}); one traced call:")
+        busy, kernels = device_busy(fn, top=8)
+        out[f"{label}_{tag}_device_busy_ms"] = busy
+        out[f"{label}_{tag}_kernels"] = kernels
+        print(f"  device busy {busy:.3f} ms, {kernels} kernels [{card}]")
+    return out
+
+
+def _cos_rel(ref, got):
+    """(cosine, relative L2 error) of ``got`` against ``ref``, flattened,
+    in f64: the acceptance figures of ``tests/test_quant.py``."""
+    a, b = ref.double().flatten(), got.double().flatten()
+    return ((a @ b / (a.norm() * b.norm())).item(),
+            ((a - b).norm() / a.norm()).item())
+
+
+def check_int8(engine, sd, mcfg, frames, peak_flops, peak_bw, card):
+    """The int8 network path on the card, with the engine
+    ``main_quantized_torch.py`` builds (``int8_encoder``) from the
+    conditioned ViT-L weights, and a second engine on the same model with
+    ``int8_local_head``:
+
+    * every quantised weight, scale and bias on the card equals the CPU's
+      quantisation of the same (bf16-cast) weights, bitwise;
+    * at each of the six product shapes, the card's int32 accumulator
+      equals the CPU's product bitwise (and the token codes the CPU's);
+      ``torch._int_mm``, the whole ``_int8_matmul`` and the bf16 ``Dense``
+      of the same shape timed (``time_ms``) beside their bounds (int8 at
+      the data sheet's 1,979 TOP/s, bf16 at 989 TFLOP/s, 3.35 TB/s), and
+      the host time of one call of each (``host_us``);
+    * ViT-L encode, int8 against the production bf16 engine: ``pos``
+      equal, cosine > 0.99 and relative error < 0.15
+      (``tests/test_quant.py:29-32``); encode time, host time and device
+      busy of both;
+    * a small model's int8 encode on the card against the CPU.
+
+    Returns (the int8 engine, the int8-local-head engine, figures)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mast3r_slam_torch.inference import InferenceEngine
+    from mast3r_slam_torch.models import quant as tq
+    from mast3r_slam_torch.models.mast3r import MASt3R, _product
+
+    model = MASt3R(mcfg)
+    model.load_state_dict(sd)
+    eng_q = InferenceEngine(model, IMG_HW, device="cuda", int8_encoder=True)
+    eng_l = InferenceEngine(eng_q.model, IMG_HW, device="cuda",
+                            int8_local_head=True)
+    out = {}
+
+    # the quantised weights: card against the CPU on the same weights
+    m = eng_q.model
+    lins = [(f"enc_block_{i}", k, lin) for i, b in enumerate(m.enc_blocks)
+            for k, lin in (("qkv", b.attn.qkv), ("proj", b.attn.proj),
+                           ("fc1", b.mlp.fc1), ("fc2", b.mlp.fc2))]
+    lins += [(f"local{n}", k, getattr(getattr(
+        m, f"downstream_head{n}").head_local_features, k))
+        for n in (1, 2) for k in ("fc1", "fc2")]
+    trees = {**eng_q.qparams, **eng_l.qlocal}
+    for name, k, lin in lins:
+        cpu = tq._quantize_dense(lin.weight.cpu(), lin.bias.cpu())
+        card_qd = trees[name][k]
+        if card_qd.w_int8.device.type != "cuda" or not all(
+                torch.equal(a.cpu(), b) for a, b in zip(card_qd, cpu)):
+            raise SystemExit(f"int8 weights of {name}.{k} on the card differ "
+                             f"from the CPU's")
+    n_bytes = sum(t.numel() * t.element_size() for blk in trees.values()
+                  for qd in blk.values() for t in qd)
+    print(f"int8 weights: {len(lins)} Linears quantised on the card, equal "
+          f"to the CPU's bitwise ({n_bytes / 1e6:.1f} MB: encoder "
+          f"{len(eng_q.qparams)} blocks x 4, local heads 2 x 2; weights "
+          f"{m.enc_blocks[0].attn.qkv.weight.dtype}) [{card}]")
+
+    # the six products of the main path at 384x512 (768 tokens): an
+    # encoder block's qkv, proj, fc1, fc2 and the local head's fc1, fc2
+    i8_peak = _INT8_PEAKS[torch.cuda.get_device_name(0)]
+    M = IMG_HW[0] * IMG_HW[1] // mcfg.patch_size ** 2
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    products = []
+    for block, k, lin in lins:
+        if block not in ("enc_block_0", "local1"):
+            continue
+        name = f"{'encoder' if block == 'enc_block_0' else 'local head'} {k}"
+        qd = trees[block][k]
+        N, K = qd.w_int8.shape
+        x = torch.randn(M, K, device="cuda", generator=gen)
+        x8, _ = tq.quantize_tokens(x)
+        x8_cpu, _ = tq.quantize_tokens(x.cpu())
+        acc = tq.int_mm(x8, qd.w_int8.t())
+        acc_cpu = torch._int_mm(x8_cpu, qd.w_int8.cpu().t())
+        if not (torch.equal(x8.cpu(), x8_cpu)
+                and torch.equal(acc.cpu(), acc_cpu)):
+            raise SystemExit(f"int8 product {name} ({M} x {K}) . ({K} x "
+                             f"{N}): the card's int32 accumulator differs "
+                             f"from the CPU's")
+        w_t = qd.w_int8.t()
+        calls = {"int_mm": lambda: tq.int_mm(x8, w_t),
+                 "int8_matmul": lambda: tq._int8_matmul(x, qd),
+                 "dense_bf16": lambda: _product(
+                     F.linear, x, lin.weight, lin.bias, torch.bfloat16)}
+        ms = {k: time_ms(fn) for k, fn in calls.items()}
+        us = {k: host_us(fn) for k, fn in calls.items()}
+        ops = 2.0 * M * K * N
+        bound = {
+            "int_mm": max(ops / i8_peak, (M * K + K * N + 4 * M * N)
+                          / peak_bw),
+            "int8_matmul": max(ops / i8_peak, (4 * M * K + K * N + 8 * N
+                                               + 4 * M * N) / peak_bw),
+            "dense_bf16": max(ops / peak_flops, (4 * M * K + 2 * K * N
+                                                 + 2 * N + 2 * M * N)
+                              / peak_bw)}
+        row = {"shape": [M, K, N], **{f"{k}_ms": v for k, v in ms.items()},
+               **{f"{k}_bound_ms": 1e3 * v for k, v in bound.items()},
+               **{f"{k}_host_us": v for k, v in us.items()}}
+        products.append(dict(name=name, **row))
+        print(f"int8 product {name} ({M} x {K}) . ({K} x {N}): int32 "
+              f"accumulator and codes equal the CPU's; torch._int_mm "
+              f"{ms['int_mm']:.4f} ms (bound {1e3 * bound['int_mm']:.4f}), "
+              f"_int8_matmul {ms['int8_matmul']:.4f} ms (bound "
+              f"{1e3 * bound['int8_matmul']:.4f}), bf16 Dense "
+              f"{ms['dense_bf16']:.4f} ms (bound "
+              f"{1e3 * bound['dense_bf16']:.4f}); host time a call "
+              f"{us['int_mm']:.1f} / {us['int8_matmul']:.1f} / "
+              f"{us['dense_bf16']:.1f} us [{card}]")
+    out["int8_products"] = products
+
+    # ViT-L encode: int8 against the production bf16 engine
+    img = torch.from_numpy(frames[0].astype(np.float32) * (1.0 / 127.5)
+                           - 1.0)[None].cuda()
+    f16, p16 = engine.encode(img)
+    f8, p8 = eng_q.encode(img)
+    cos, rel = _cos_rel(f16, f8)
+    ok = bool(torch.equal(p16, p8) and torch.isfinite(f8).all()
+              and f8.dtype == torch.float32 and f8.shape == f16.shape)
+    print(f"ViT-L encode, int8 against bf16: cosine {cos:.6f}, relative "
+          f"error {rel:.5f} (acceptance: cosine > {INT8_COS_MIN}, relative "
+          f"error < {INT8_REL_MAX}); pos equal, finite: {ok} [{card}]")
+    if not ok or not (cos > INT8_COS_MIN and rel < INT8_REL_MAX):
+        raise SystemExit("the ViT-L int8 encoder is outside its acceptance "
+                         "bounds")
+    out.update(encode_int8_cosine=cos, encode_int8_rel_err=rel)
+    out.update(timed_in_turns("encode", {
+        "bf16": lambda: engine.encode(img),
+        "int8": lambda: eng_q.encode(img)}, card))
+    out["small_model_int8_encode_err"] = check_small_model_int8()
+    return eng_q, eng_l, out
+
+
+def check_small_model_int8():
+    """A small model's int8 encode (Dh = 64, 24 tokens) on the card against
+    the same weights on the CPU, to ``INT8_SMALL_TOL`` of the features'
+    scale: the card's attention kernel and the CPU's plain version round
+    the bf16 attention differently, and a token whose int8 code flips
+    moves by a quantisation step."""
+    import torch
+
+    from mast3r_slam_torch.inference import InferenceEngine
+    from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
+
+    hw = (64, 96)
+    img = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (1, hw[0], hw[1], 3)).astype(np.float32))
+    cfg = MASt3RConfig.tiny(enc_embed_dim=128, enc_num_heads=2,
+                            dec_embed_dim=128, dec_num_heads=2)
+    torch.manual_seed(1)
+    state = MASt3R(cfg).state_dict()
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = MASt3R(cfg)
+        model.load_state_dict(state)
+        eng = InferenceEngine(model, hw, device=dev, int8_encoder=True)
+        feat, pos = eng.encode(img.to(dev))
+        res[dev] = (feat.cpu(), pos.cpu())
+    err = (res["cpu"][0] - res["cuda"][0]).abs().max().item()
+    tol = INT8_SMALL_TOL * (1.0 + res["cpu"][0].abs().max().item())
+    print(f"small model, int8 encoder: card vs CPU max abs err {err:.3e} "
+          f"(tol {tol:.1e}), pos equal "
+          f"{torch.equal(res['cpu'][1], res['cuda'][1])}")
+    if not (err <= tol and torch.equal(res["cpu"][1], res["cuda"][1])):
+        raise SystemExit("the int8 encoder on the card disagrees with the "
+                         "CPU")
+    return err
+
+
+def check_int8_local_head(eng_q, eng_l, frames, card):
+    """One decode of the same engine's model with the int8 local-feature
+    MLPs against its bf16 heads: X and C equal within ``INT8_XC_ATOL`` of
+    their scale (the DPT is the same code on the same tokens), descriptor
+    cosine > 0.99 and Q relative error < 0.1
+    (``tests/test_quant.py:83-87``); decode + heads time, host time and
+    device busy of both."""
+    import torch
+
+    norm = [torch.from_numpy(f.astype(np.float32) * (1.0 / 127.5) - 1.0)
+            [None].cuda() for f in frames[:2]]
+    (f1, p1), (f2, p2) = (eng_q.encode(x) for x in norm)
+    ref = eng_q.decode_pair(f1, p1, f2, p2)
+    got = eng_l.decode_pair(f1, p1, f2, p2)
+    out = {}
+    for view, (X, C, D, Q), (Xq, Cq, Dq, Qq) in zip(("view 1", "view 2"),
+                                                    ref, got):
+        xc = max(((a - b).abs().max() / (1.0 + a.abs().max())).item()
+                 for a, b in ((X, Xq), (C, Cq)))
+        cos, _ = _cos_rel(D, Dq)
+        _, rel = _cos_rel(Q, Qq)
+        print(f"int8 local head against bf16 heads, {view}: X, C max err "
+              f"{xc:.3e} of their scale (tol {INT8_XC_ATOL:.0e}), "
+              f"descriptor cosine {cos:.6f} (> {INT8_DESC_COS_MIN}), Q "
+              f"relative error {rel:.5f} (< {INT8_Q_REL_MAX}) [{card}]")
+        if not (xc <= INT8_XC_ATOL and cos > INT8_DESC_COS_MIN
+                and rel < INT8_Q_REL_MAX and torch.isfinite(Dq).all()):
+            raise SystemExit("the int8 local head is outside its acceptance "
+                             "bounds")
+        out[view] = {"xc_err": xc, "desc_cosine": cos, "q_rel_err": rel}
+    out.update(timed_in_turns("decode_and_heads", {
+        "bf16_heads": lambda: eng_q.decode_pair(f1, p1, f2, p2),
+        "int8_local_head": lambda: eng_l.decode_pair(f1, p1, f2, p2)}, card))
+    return out
+
+
+def compare_int8_drive(bf16, int8, card):
+    """The int8 drive's frame times and keyframe poses beside the bf16
+    production drive's (both threaded, one call)."""
+    import torch
+
+    for k in ("frame_ms", "keyframe_frame_ms", "tracked_frame_ms"):
+        print(f"int8 drive against bf16: {k} int8 {_r(int8['timings'][k])}, "
+              f"bf16 {_r(bf16['timings'][k])} [{card}]")
+    print(f"int8 drive against bf16: drive_ms int8 "
+          f"{int8['timings']['drive_ms']:.1f}, bf16 "
+          f"{bf16['timings']['drive_ms']:.1f}; stats int8 "
+          f"{int8['timings']['stats']}, bf16 {bf16['timings']['stats']}")
+    out = {"last_pose_max_diff": (int8["last"] - bf16["last"]).abs().max()
+           .item()}
+    if int8["kf"].shape == bf16["kf"].shape:
+        out["keyframe_pose_max_diff"] = (int8["kf"] - bf16["kf"]).abs().max() \
+            .item()
+    print(f"int8 drive against bf16: largest pose difference {out} "
+          f"(keyframes {tuple(int8['kf'].shape)} / "
+          f"{tuple(bf16['kf'].shape)}) [{card}]")
+    if not all(torch.isfinite(t).all() for t in (int8["kf"], int8["last"])):
+        raise SystemExit("the int8 drive's poses are not finite")
+    return out
+
+
+def network_breakdown_report(engine, stages, card):
+    """``--profile-blocks`` on the ViT-L bf16 model at 384x512
+    (``utils/breakdown.py``), printed as ``main_torch.py`` prints it, its
+    "ViT total" (the sub-blocks times their counts) beside the measured
+    encode and decode + heads stage times."""
+    from mast3r_slam_torch.utils.breakdown import (network_breakdown,
+                                                   print_network_summary)
+
+    res = network_breakdown(engine.model, IMG_HW)
+    vit_ms = 1e3 * sum(res.values())
+    stage_ms = stages["encode"] + stages["decode_and_heads"]
+    print_network_summary(res, extra={
+        "measured encode stage (ms)": round(stages["encode"], 3),
+        "measured decode + heads stage (ms)": round(
+            stages["decode_and_heads"], 3)})
+    print(f"breakdown: ViT total {vit_ms:.3f} ms (sub-blocks x counts, "
+          f"heads not included) against the measured encode + decode + "
+          f"heads stages {stage_ms:.3f} ms [{card}]")
+    if not all(v > 0 for v in res.values()):
+        raise SystemExit("the network breakdown has a section without time")
+    return {"breakdown_ms": {k: 1e3 * v for k, v in res.items()},
+            "breakdown_vit_total_ms": vit_ms,
+            "breakdown_encode_plus_decode_stages_ms": stage_ms}
 
 
 def build_engine(seed):
@@ -1991,7 +2317,11 @@ def main(argv=None):
     frames = make_clip(args.seed, N_FRAMES + 1, IMG_HW, CLIP_SHIFT,
                        CLIP_TEXTURE)
     heads = check_heads(engine, sd, frames, card)
-    del sd
+    eng_q, eng_l, int8 = check_int8(engine, sd, mcfg, frames, peak_flops,
+                                    peak_bw, card)
+    int8.update(check_int8_local_head(eng_q, eng_l, frames, card))
+    del sd, eng_l
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         launches, system, record, timings = drive_frontend(
             engine, mcfg, cfg, frames[:N_FRAMES], card, "production drive",
@@ -2004,6 +2334,10 @@ def main(argv=None):
     stages.update(timings)
     stages.update(check_ba(record, cfg, card))
     stages.update(backend_breakdown(system, record, card))
+    stages.update(network_breakdown_report(engine, stages, card))
+    bf16_drive = {"timings": timings,
+                  "kf": system.arena.T_WC[:system.arena.n_size].cpu(),
+                  "last": system.last_T_WC.cpu()}
     del system, record
     torch.cuda.empty_cache()
     # the same frames inline, in turns with a second threaded drive
@@ -2018,6 +2352,17 @@ def main(argv=None):
         del system_again
         torch.cuda.empty_cache()
     stages.update(compare_threaded_inline(runs, card, "production drive"))
+    # the same frames through the int8 encoder (main_quantized_torch.py),
+    # threaded as the production drive
+    launches_int8, system_int8, _, timings_int8 = drive_frontend(
+        eng_q, mcfg, cfg, frames[:N_FRAMES], card, "int8 drive")
+    int8["drive"] = timings_int8
+    int8["drive"].update(compare_int8_drive(bf16_drive, {
+        "timings": timings_int8,
+        "kf": system_int8.arena.T_WC[:system_int8.arena.n_size].cpu(),
+        "last": system_int8.last_T_WC.cpu()}, card))
+    del system_int8, eng_q
+    torch.cuda.empty_cache()
 
     from mast3r_slam_torch.retrieval.database import RetrievalDatabase
 
@@ -2058,17 +2403,19 @@ def main(argv=None):
     ate["threaded"] = drive_oracle_threaded(card)
     state.update(drive_oracle_state(card))
 
-    # the main path's launches: the production drive's and the retrieval
-    # drive's, each counted from 0 over its own run
+    # the main path's launches: the production drive's, the retrieval
+    # drive's and the int8 drive's, each counted from 0 over its own run
     kinds = ("attention", "gn_accumulate", "gn_solve", "pack_rows")
-    by_drive = {k: {"production": launches[k], "retrieval": launches_retr[k]}
-                for k in kinds}
-    if not all(launches_retr[k] > 0
-               for k in ("attention", "gn_solve", "pack_rows")):
-        raise SystemExit("a kernel of the main path was not launched by the "
-                         "retrieval drive")
-    gn_iterations = launches["gn_iterations"] + launches_retr["gn_iterations"]
-    launches = {k: launches[k] + launches_retr[k] for k in kinds}
+    drives = {"production": launches, "retrieval": launches_retr,
+              "int8": launches_int8}
+    by_drive = {k: {d: n[k] for d, n in drives.items()} for k in kinds}
+    for d in ("retrieval", "int8"):
+        if not all(drives[d][k] > 0
+                   for k in ("attention", "gn_solve", "pack_rows")):
+            raise SystemExit(f"a kernel of the main path was not launched "
+                             f"by the {d} drive")
+    gn_iterations = sum(n["gn_iterations"] for n in drives.values())
+    launches = {k: sum(n[k] for n in drives.values()) for k in kinds}
     kernels = [
         dict(name="attention", route="cuda",
              source="mast3r_slam_torch/csrc/attention.cu",
@@ -2102,6 +2449,7 @@ def main(argv=None):
     print(f"stages: {json.dumps(stages)}")
     print(f"stages reference-exact: {json.dumps(stages_exact)}")
     print(f"retrieval: {json.dumps(retrieval)}")
+    print(f"int8: {json.dumps(int8)}")
     print(f"oracle ATE (m): {json.dumps(ate)}")
     print(f"state: {json.dumps(state)}")
     print(f"production drive, threaded, run 2, launches: "

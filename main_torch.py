@@ -3,7 +3,8 @@
 
 The counterpart of ``main.py``: load a dataset, build the engine and the
 SLAM system (``mast3r_slam_torch``: tracking, the factor-graph backend, the
-ASMK retrieval database and relocalization), loop
+ASMK retrieval database and relocalization; the encoder and the local-feature
+MLPs in int8 on request), loop
 ``SLAMSystem.process_frame`` over the frames, export the keyframe
 trajectory (TUM format), the point cloud (PLY) and the keyframe images,
 write the protocol rates (``--rates-out``) and score ATE against a ground
@@ -32,12 +33,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 # flag -> the slice of the port that brings its module
 LATER_SLICES = {
-    "int8_encoder": "int8 encoder slice (models/quant.py)",
-    "int8_local_head": "int8 encoder slice (models/quant.py)",
     "tp": "multi-GPU slice (tensor-parallel network)",
     "backend_device": "multi-GPU slice (backend on a second card)",
     "viz_port": "viewer slice (live WebGL viewer)",
-    "profile_blocks": "per-block breakdown slice (utils/breakdown.py)",
 }
 
 
@@ -79,6 +77,13 @@ def parse_args(argv=None):
                    help="run the DPT/catMLP heads in float32 (the exact "
                         "reference autocast policy) instead of the default "
                         "bf16-compute/fp32-postprocess fast path")
+    p.add_argument("--int8-encoder", action="store_true",
+                   help="int8 encoder: per-channel int8 weights, per-token "
+                        "int8 activations, the card's int8 product "
+                        "(models/quant.py; no effect with --oracle)")
+    p.add_argument("--int8-local-head", action="store_true",
+                   help="the catMLP local-feature MLPs in int8 the same "
+                        "way (no effect with --oracle)")
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--gt", default="", help="TUM-format GT for ATE scoring")
     p.add_argument("--ate-max-diff", type=float, default=0.01,
@@ -102,6 +107,11 @@ def parse_args(argv=None):
     p.add_argument("--profile", action="store_true",
                    help="section timers (synchronises the device per "
                         "section)")
+    p.add_argument("--profile-blocks", action="store_true",
+                   help="after the run, time the network's sub-blocks "
+                        "(PatchEmbed / enc attn / enc mlp / dec self + "
+                        "cross + mlp) and print the per-frame summary "
+                        "(utils/breakdown.py)")
     p.add_argument("--max-frames", type=int, default=0)
     p.add_argument("--start-frame", type=int, default=0,
                    help="first (post-subsample) frame index to process")
@@ -117,12 +127,9 @@ def parse_args(argv=None):
                    help="write the SLAM state after the last frame (a run "
                         "in segments chains these with --start-frame)")
     # flags of main.py whose modules are later slices of the port
-    p.add_argument("--int8-encoder", action="store_true")
-    p.add_argument("--int8-local-head", action="store_true")
     p.add_argument("--tp", type=int, default=None)
     p.add_argument("--backend-device", type=int, default=None)
     p.add_argument("--viz-port", type=int, default=None)
-    p.add_argument("--profile-blocks", action="store_true")
     return p.parse_args(argv)
 
 
@@ -355,7 +362,8 @@ def main(argv=None):
             load_model(args), (h, w),
             downsample=int(config["dataset"].get("img_downsample", 1)),
             match_cfg=MatchingConfig.from_dict(config["matching"]),
-            device=device)
+            device=device, int8_encoder=args.int8_encoder,
+            int8_local_head=args.int8_local_head)
     retrieval = None
     if args.oracle:
         if args.oracle_retrieval:
@@ -411,6 +419,13 @@ def main(argv=None):
         export(system, dataset, args)
     if args.profile:
         profiler.print_summary()
+    if args.profile_blocks and not (args.oracle or args.tiny_model):
+        from mast3r_slam_torch.utils.breakdown import (network_breakdown,
+                                                       print_network_summary)
+
+        print_network_summary(network_breakdown(engine.model, (h, w)))
+    elif args.profile_blocks:
+        print("[profile-blocks] skipped (oracle/tiny run has no full net)")
     return 0
 
 

@@ -1,7 +1,8 @@
 """Inference adapters around the MASt3R network.
 
-Mirrors ``mast3r_slam_tpu/inference.py``: encode, the asymmetric two-view
-decode with both heads, the mono (self-pair) decode, the asymmetric
+Mirrors ``mast3r_slam_tpu/inference.py``: encode (bf16, f32 or int8), the
+asymmetric two-view decode with both heads (the local-feature MLPs in int8
+on request), the mono (self-pair) decode, the asymmetric
 decode + dense match of the tracker, the backend's symmetric decode + match
 and decode-free pose-warped match of a factor-graph edge, and the
 host-side image resize.
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.mast3r import MASt3R, cast_trunk_params_bf16
+from .models import quant
+from .models.mast3r import MASt3R, cast_trunk_params_bf16, postprocess
 from .ops import lie_sim3 as sim3
 from .ops import matching
 
@@ -27,7 +29,12 @@ class InferenceEngine:
     def __init__(self, model: MASt3R, img_hw: Tuple[int, int],
                  downsample: int = 1,
                  match_cfg: matching.MatchingConfig | None = None,
-                 device="cuda"):
+                 device="cuda", int8_encoder: bool = False,
+                 int8_local_head: bool = False):
+        """``int8_encoder`` runs the encoder through ``quant.encode_int8``
+        and ``int8_local_head`` the catMLP local-feature MLPs through
+        ``quant.local_features_int8`` (inference.py:89-110), both with
+        weights quantised here from the model as cast below."""
         if downsample != 1:
             raise NotImplementedError(
                 f"dataset.img_downsample={downsample} is not ported (the "
@@ -45,6 +52,11 @@ class InferenceEngine:
             cast_trunk_params_bf16(
                 model, head_bf16=model.cfg.head_dtype == torch.bfloat16)
         self.model = model.to(self.device).eval()
+        # quantised from the cast weights, as JAX quantises after its cast
+        self.qparams = quant.quantize_encoder_params(self.model) \
+            if int8_encoder else None
+        self.qlocal = quant.quantize_local_heads(self.model) \
+            if int8_local_head else None
         self.img_hw = tuple(img_hw)
         self.match_cfg = match_cfg or matching.MatchingConfig()
         p = model.cfg.patch_size
@@ -55,14 +67,30 @@ class InferenceEngine:
     def encode(self, img):
         """img (B, h, w, 3) -> (feat (B, N, C) f32, pos (B, N, 2))
         (inference.py:161)."""
-        return self.model.encode(img.to(self.device))
+        img = img.to(self.device)
+        if self.qparams is not None:
+            return quant.encode_int8(self.model, self.qparams, img)
+        return self.model.encode(img)
 
     @torch.no_grad()
     def decode_pair(self, feat1, pos1, feat2, pos2):
-        """One asymmetric two-view decode (inference.py:165).  Returns
-        ((X, C, D, Q) for view 1, for view 2), each (B, h, w, ...)."""
-        res = self.model.decode_and_head(feat1, pos1, feat2, pos2,
-                                         self.img_hw)
+        """One asymmetric two-view decode with both heads, the one decode of
+        the tracker, the backend's symmetric edges and relocalization
+        (``_decode_head``, inference.py:119-145, 165).  With
+        ``int8_local_head``: decode, the DPT, the int8 local-feature MLP on
+        (encoder, last decoder) tokens, the postprocess.  Returns ((X, C,
+        D, Q) for view 1, for view 2), each (B, h, w, ...)."""
+        m = self.model
+        if self.qlocal is None:
+            res = m.decode_and_head(feat1, pos1, feat2, pos2, self.img_hw)
+        else:
+            res = []
+            for n, toks in enumerate(m.decode(feat1, pos1, feat2, pos2), 1):
+                local = quant.local_features_int8(
+                    self.qlocal[f"local{n}"], toks[0], toks[-1],
+                    self.img_hw, m.cfg)
+                res.append(postprocess(m.head_dpt(n, toks, self.img_hw),
+                                       local, m.cfg))
         return tuple((r["pts3d"], r["conf"], r["desc"], r["desc_conf"])
                      for r in res)
 

@@ -12,6 +12,9 @@ JAX ``MASt3R`` into a state dict keyed like the published checkpoint, which
   stride-16 conv weight (O, C, p, p)
 * Dense "up" (I, s*s*O), output order (a, b, o), bias tiled s*s times ->
   ConvTranspose2d weight (I, O, s, s) and its (O,) bias (convert.py:57-62)
+
+``quant_params_from_jax`` does the same for the int8 weight trees of the
+JAX ``models/quant.py``.
 """
 
 from __future__ import annotations
@@ -162,6 +165,26 @@ def params_from_jax(flax_params, patch_size: int = 16) -> dict:
                 p[f"local{n}"]["head_local_features"]),
         }
     return _flatten(tree)
+
+
+def quant_params_from_jax(qparams) -> dict:
+    """The JAX ``QuantDense`` trees of ``quantize_encoder_params`` and
+    ``quantize_local_heads`` (mast3r_slam_tpu/models/quant.py:49, 152;
+    numpy or JAX leaves) -> the port's, with the same keys: each int8 Flax
+    kernel (in, out) becomes the (out, in) weight of ``quant.QuantDense``;
+    scale and bias stay (out,) f32."""
+    from .quant import QuantDense
+
+    def one(qd):
+        w_int8, scale, bias = qd
+        return QuantDense(
+            torch.from_numpy(np.ascontiguousarray(
+                np.asarray(w_int8, dtype=np.int8).T)),
+            torch.from_numpy(np.array(scale, dtype=np.float32)),
+            torch.from_numpy(np.array(bias, dtype=np.float32)))
+
+    return {name: {layer: one(qd) for layer, qd in blk.items()}
+            for name, blk in qparams.items()}
 
 
 def prepare_checkpoint(sd: dict) -> dict:

@@ -255,11 +255,13 @@ class PatchEmbed(nn.Module):
         self.patch_size, self.compute_dtype = patch_size, dtype
         self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
 
-    def forward(self, img):
+    def forward(self, img, compute_dtype=None):
+        """``compute_dtype`` overrides the trunk dtype: the int8 encoder
+        embeds in bf16 whatever the trunk's (quant.py:108-109)."""
         B, H, W, _ = img.shape
         p = self.patch_size
         nh, nw = H // p, W // p
-        cd = self.compute_dtype
+        cd = compute_dtype or self.compute_dtype
         # the bias as the JAX Dense adds it
         x = _product(lambda x, w, b: F.conv2d(x, w, b, stride=p),
                      img.permute(0, 3, 1, 2), self.proj.weight,
@@ -512,8 +514,9 @@ def postprocess(dpt_out, local_out, cfg: MASt3RConfig):
 # ---------------------------------------------------------------------------
 
 class MASt3R(nn.Module):
-    """Two-view network (mast3r.py:446): ``encode``, ``decode``, ``head``,
-    ``decode_and_head``; ``forward`` is the full two-view pass."""
+    """Two-view network (mast3r.py:446): ``encode``, ``decode``,
+    ``head_dpt``, ``head``, ``decode_and_head``; ``forward`` is the full
+    two-view pass."""
 
     def __init__(self, cfg: MASt3RConfig):
         super().__init__()
@@ -556,11 +559,19 @@ class MASt3R(nn.Module):
         out2[-1] = self.dec_norm(out2[-1])
         return out1, out2
 
+    def head_dpt(self, head_num, tokens, img_hw):
+        """The DPT half of a downstream head (mast3r.py:509): the raw
+        (B, H, W, 4) xyz + conf map from the hooked token layers, apart so
+        that the int8 local-feature head (``quant.local_features_int8``)
+        can pair with it."""
+        hd = self.downstream_head1 if head_num == 1 else self.downstream_head2
+        return hd.dpt([tokens[h] for h in self.cfg.hooks], img_hw)
+
     def head(self, head_num, tokens, img_hw):
         """Downstream head on the hooked token layers (mast3r.py:519), in
         ``cfg.head_dtype``; the postprocess in f32."""
         hd = self.downstream_head1 if head_num == 1 else self.downstream_head2
-        dpt_out = hd.dpt([tokens[h] for h in self.cfg.hooks], img_hw)
+        dpt_out = self.head_dpt(head_num, tokens, img_hw)
         local_out = hd.local_features(tokens[0], tokens[-1], img_hw)
         return postprocess(dpt_out, local_out, self.cfg)
 

@@ -522,9 +522,7 @@ def test_main_torch_says_the_backend_runs_inline(clip, tmp_path,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--int8-encoder"], ["--int8-local-head"], ["--tp", "2"],
-    ["--backend-device", "0"], ["--viz-port", "8089"], ["--profile-blocks"],
-    []],
+    ["--tp", "2"], ["--backend-device", "0"], ["--viz-port", "8089"], []],
     ids=lambda f: f[0] if f else "without --no-viz")
 def test_main_torch_refuses_later_slices(flag):
     """A flag whose module is a later slice exits with one line naming the
@@ -534,6 +532,111 @@ def test_main_torch_refuses_later_slices(flag):
         main_torch.main(argv)
     msg = str(e.value.code)
     assert "not ported yet" in msg and "slice" in msg and "\n" not in msg
+
+
+def _cli_net(d, tmp_path, monkeypatch, argv, entry=main_torch.main):
+    """``entry(argv)`` over the first 3 frames of the clip ``d`` from
+    ``tmp_path`` with ``config/base.yaml`` (384x512 frames, the backend on
+    a thread); returns (exit code, the system it ran)."""
+    monkeypatch.chdir(tmp_path)
+    root = main_torch.pathlib.Path(main_torch.__file__).parent
+    (tmp_path / "config").symlink_to(root / "config")
+    systems = []
+    run = main_torch.run
+
+    def spy(system, dataset, args):
+        systems.append(system)
+        return run(system, dataset, args)
+
+    monkeypatch.setattr(main_torch, "run", spy)
+    rc = entry(["--dataset", str(d), "--config", "config/base.yaml",
+                "--cpu", "--no-viz", "--max-frames", "3", "--save-as", "run",
+                *argv])
+    return rc, systems[0]
+
+
+@pytest.mark.parametrize("argv,entry,local", [
+    (["--tiny-model", "--int8-encoder"], "main_torch", False),
+    (["--tiny-model", "--int8-encoder", "--int8-local-head"], "main_torch",
+     True),
+    (["--tiny-model"], "main_quantized_torch", False),
+    (["--tiny-model", "--int8-local-head"], "main_quantized_torch", True)],
+    ids=["int8-encoder", "int8-encoder+local-head", "main_quantized_torch",
+         "main_quantized_torch+local-head"])
+def test_main_torch_int8_runs(clip, tmp_path, monkeypatch, capsys, argv,
+                              entry, local):
+    """``--int8-encoder`` (and ``--int8-local-head``) run the clip to exit 0
+    through the int8 engine, and ``main_quantized_torch.py`` is
+    ``main_torch.py`` with ``--int8-encoder`` added.  Replaces the refusal
+    cases of these flags in ``test_main_torch_refuses_later_slices``."""
+    import main_quantized_torch
+
+    _, _, d = clip
+    fn = main_torch.main if entry == "main_torch" else \
+        main_quantized_torch.main
+    rc, system = _cli_net(d, tmp_path, monkeypatch, argv, fn)
+    out = capsys.readouterr().out
+    assert rc == 0
+    eng = system.engine
+    assert eng.qparams is not None and len(eng.qparams) == 2
+    assert (eng.qlocal is not None) is local
+    assert eng.qparams["enc_block_0"]["fc1"].w_int8.dtype == torch.int8
+    # the random tiny network need not track: the run goes on (RELOC)
+    assert "done: 3 frames" in out and "stats:" in out
+    assert not system._backend_thread.is_alive()
+
+
+def test_main_torch_int8_flags_have_no_effect_with_oracle(clip, tmp_path,
+                                                          monkeypatch):
+    """With ``--oracle`` there is no network: the int8 flags change nothing
+    (main.py builds its oracle engine the same way)."""
+    _, _, d = clip
+    rc, system = _cli_net(d, tmp_path, monkeypatch,
+                          ["--oracle", "--int8-encoder", "--int8-local-head"])
+    assert rc == 0
+    assert type(system.engine).__name__ == "OracleEngine"
+
+
+@pytest.mark.parametrize("argv", [["--tiny-model"], ["--oracle"]])
+def test_main_torch_profile_blocks_skips_without_a_full_net(
+        clip, tmp_path, monkeypatch, capsys, argv):
+    _, _, d = clip
+    rc, _ = _cli_net(d, tmp_path, monkeypatch, ["--profile-blocks", *argv])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "[profile-blocks] skipped (oracle/tiny run has no full net)" in out
+    assert "NETWORK TIMING BREAKDOWN" not in out
+
+
+def test_main_torch_profile_blocks_prints_the_breakdown(clip, tmp_path,
+                                                        monkeypatch, capsys):
+    """A run of the full network (its loader given the tiny model, so no
+    checkpoint is read) with ``--profile-blocks`` times the engine's model
+    at the run's frame size after the drive and prints the summary."""
+    from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
+
+    _, _, d = clip
+    seen = []
+
+    def tiny_model(args):
+        torch.manual_seed(0)
+        return MASt3R(MASt3RConfig.tiny())
+
+    from mast3r_slam_torch.utils import breakdown
+
+    def spy(model, hw, n_chain=8):
+        seen.append((model, hw))
+        return breakdown_fn(model, hw, n_chain=1)
+
+    breakdown_fn = breakdown.network_breakdown
+    monkeypatch.setattr(main_torch, "load_model", tiny_model)
+    monkeypatch.setattr(breakdown, "network_breakdown", spy)
+    rc, system = _cli_net(d, tmp_path, monkeypatch, ["--profile-blocks"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert seen == [(system.engine.model, (384, 512))]
+    assert "NETWORK TIMING BREAKDOWN (per tracked frame)" in out
+    assert "[profile-blocks] skipped" not in out
 
 
 def test_main_torch_needs_a_card_without_cpu_flag(clip, tmp_path,

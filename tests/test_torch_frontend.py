@@ -101,17 +101,18 @@ def _keep_rounds(system):
     system.graph.solve_poses = keep_round
 
 
-def _run_jax(params, cfg, frames, head_dtype=jnp.float32):
+def _run_jax(params, cfg, frames, head_dtype=jnp.float32, **engine_kw):
     """The JAX package's ``SLAMSystem`` over the frames, its backend inline
-    (``single_thread``).  Returns (per-frame log with the tracker's
-    (idx_f2k, valid) of each tracked frame under "match", keyframe poses,
-    the system)."""
+    (``single_thread``); ``engine_kw`` goes to its ``InferenceEngine``
+    (``int8_encoder=True``, say).  Returns (per-frame log with the
+    tracker's (idx_f2k, valid) of each tracked frame under "match",
+    keyframe poses, the system)."""
     cfg = copy.deepcopy(cfg)
     cfg["single_thread"] = True
     model = JaxMASt3R(JaxConfig.tiny(head_dtype=head_dtype))
     engine = JaxEngine(model, params, (H, W),
                        match_cfg=jmatch.MatchingConfig.from_dict(
-                           cfg["matching"]))
+                           cfg["matching"]), **engine_kw)
     system = JaxSLAMSystem(cfg, engine, (H, W), buffer=N_FRAMES)
     matches = []
     track = system.tracker.track
@@ -140,19 +141,20 @@ def _run_jax(params, cfg, frames, head_dtype=jnp.float32):
 
 
 def _run_port(sd, cfg, frames, matches=None, edges=None,
-              head_dtype=torch.float32):
+              head_dtype=torch.float32, **engine_kw):
     """The port's ``SLAMSystem``; with ``matches`` (one (idx_f2k, valid)
     pair per tracked frame) the tracker's matcher idx_f2k and validity are
     replaced by those, and with ``edges`` (the JAX graph's edge store) the
     backend's edge matches (warped or symmetric) by JAX's, edge by edge.
-    The backend runs inline (``single_thread``), as on the JAX side."""
+    The backend runs inline (``single_thread``), as on the JAX side;
+    ``engine_kw`` goes to the ``InferenceEngine``."""
     cfg = copy.deepcopy(cfg)
     cfg["single_thread"] = True
     model = MASt3R(MASt3RConfig.tiny(head_dtype=head_dtype))
     model.load_state_dict(sd)
     engine = InferenceEngine(model, (H, W),
                              match_cfg=MatchingConfig.from_dict(
-                                 cfg["matching"]), device="cpu")
+                                 cfg["matching"]), device="cpu", **engine_kw)
     if matches is not None:
         own, given = engine.match_asymmetric, iter(matches)
 

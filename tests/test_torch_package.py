@@ -11,7 +11,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "mast3r_slam_tpu")
 PORT_FILES = sorted((ROOT / "mast3r_slam_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "main_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "main_torch.py",
+    ROOT / "main_quantized_torch.py"]
 
 
 def _imported_modules(path):
