@@ -57,7 +57,19 @@ call.  Then it drives the port as a user would:
   against the CPU; one decode with the int8 local-feature head against the
   bf16 heads; and ``main_torch.run`` over the production drive's frames
   with the int8 encoder, threaded, its launches counted as the production
-  drive's and its frame times and poses beside the bf16 drive's.
+  drive's and its frame times and poses beside the bf16 drive's;
+* multi-GPU on the one card, every mesh entry that card: the ViT-L engine
+  split over a (1, 2) mesh (``--tp 2``) against the unsplit one (encode
+  and decode + heads, cosine and relative error of each output, kernel A
+  launched once per block and entry, both engines timed in turns), kernel
+  A at the split heads' shapes beside SDPA, and ``main_torch.run`` over the
+  production frames with the split engine; the BA sharded over 2 entries
+  (``FactorGraph(mesh=)``, edge and map) against the single-device solve
+  on the oracle drive's graph and on the production drive's last round
+  (its reduced (H, g)); the backend on device 0 (``backend_device=0``, its
+  mirror arena beside the live one): the oracle drive against the drive
+  without it, and the production drive threaded in turns with the
+  threaded drive without it, the rows copied to the mirror counted.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 Exits non-zero, printing no result, when any phase fails, when the whole
@@ -136,6 +148,24 @@ INT8_COS_MIN, INT8_REL_MAX = 0.99, 0.15
 INT8_DESC_COS_MIN, INT8_Q_REL_MAX = 0.99, 0.1
 INT8_SMALL_TOL = 2e-2
 INT8_XC_ATOL = 1e-5
+# multi-GPU on the one card, every mesh entry that card.  Tensor parallel:
+# ViT-L bf16 split over a (1, 2) mesh against the unsplit engine, each of
+# feat, X, C, D, Q (cosine, relative L2 error; each bf16 partial sum is
+# rounded once more than the unsplit product), and kernel A at the split
+# heads' shapes (encoder 16 / 2, decoder 12 / 2 heads).  Sharded BA: the
+# converged oracle graph against the single-device solve at the JAX test's
+# 2e-4 with equal iterations; the production round's reduced (H, g) of one
+# iteration at the card-against-CPU bound of check_ba.
+# Backend device 0: the oracle drive against the same drive without it,
+# JAX's test's 1e-5.  The tensor-parallel bounds are set from an H100's
+# readings (1 - cosine <= 2.5e-5, relative error <= 7.1e-3, of D).
+TP_COS_MIN, TP_REL_MAX = 0.9998, 0.02
+TP_ATTN_SHAPES = {"encoder": (1, 8, 768, 768, 64),
+                  "decoder": (1, 6, 768, 768, 64)}
+SHARD_POSE_ATOL, SHARD_HG_RTOL = 2e-4, 4e-6
+BDEV_POSE_ATOL = 1e-5
+# the longest the NCCL processes of --cards N may take, each call
+NCCL_DEADLINE_S = 180.0
 
 
 def card_info():
@@ -1108,7 +1138,8 @@ def build_engine(seed):
     return InferenceEngine(model, IMG_HW, device="cuda"), mcfg, sd
 
 
-def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None):
+def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
+                   backend_device=None):
     """``main_torch.run`` (dataset -> ``SLAMSystem.process_frame`` -> the
     backend's rounds -> summary) over an in-memory clip with the
     configuration ``cfg`` (``config/base.yaml``: the rounds on the backend
@@ -1121,7 +1152,9 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None):
     round are timed on the host clock, as the frame loop sees them (no
     synchronise added: a frame ends with host reads of its results), and
     the last round's BA inputs are kept for ``check_ba``.  With
-    ``state_out`` the run saves its state there (``--state-out``), timed."""
+    ``state_out`` the run saves its state there (``--state-out``), timed.
+    ``backend_device`` goes to the system (``--backend-device``); an
+    engine split over a mesh launches kernel A once per entry."""
     import torch
 
     import main_torch
@@ -1135,7 +1168,13 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None):
     from mast3r_slam_torch.tracker import TrackerConfig
 
     engine.match_cfg = MatchingConfig.from_dict(cfg["matching"])
-    system = SLAMSystem(cfg, engine, IMG_HW, device="cuda")
+    system = SLAMSystem(cfg, engine, IMG_HW, device="cuda",
+                        backend_device=backend_device)
+    if (system._bdev is None) != (backend_device is None):
+        raise SystemExit(f"{label}: backend_device={backend_device} was not "
+                         f"taken")
+    mesh = getattr(engine, "mesh", None)
+    n_split = mesh.shape["model"] if mesh is not None else 1
     threaded = system._backend_thread is not None
     timing = {"frames": [], "rounds": []}
     record = {}
@@ -1178,8 +1217,12 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None):
              _Spy(system.graph, "solve_poses", keep_inputs),
              _Spy(system.graph, "add_factors", keep_args),
              _Spy(system, "save_state", save_timed),
-             _Spy(engine, "match_symmetric", _counting(sym_pairs, True)),
-             _Spy(engine, "match_arrays_warp", _counting(warped, False))]
+             # the backend's decodes and matches go through its engine
+             # (this one, or its copy on the backend card)
+             _Spy(system.graph._eng, "match_symmetric",
+                  _counting(sym_pairs, True)),
+             _Spy(system.graph._eng, "match_arrays_warp",
+                  _counting(warped, False))]
     dataset = ClipDataset(frames)
     args = main_torch.parse_args(
         ["--no-viz"] + (["--state-out", state_out] if state_out else []))
@@ -1236,14 +1279,15 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None):
     if len(warped) + n_sym != n_edges:
         raise SystemExit(f"{label}: {len(warped)} warped and {n_sym} "
                          f"symmetric edge matches for {n_edges} edges")
-    expect_attn = (mcfg.enc_depth + 4 * mcfg.dec_depth) * n \
-        + 4 * mcfg.dec_depth * n_sym
+    expect_attn = ((mcfg.enc_depth + 4 * mcfg.dec_depth) * n
+                   + 4 * mcfg.dec_depth * n_sym) * n_split
     per_match = len(pack_tables(engine.match_cfg, IMG_HW))
     expect_pack = per_match * (tracked + len(warped) + len(sym_pairs))
     joint = TrackerConfig.from_config(cfg).joint_ray_huber
     print(f"{label}: attention launches {launches['attention']} (expected "
-          f"{expect_attn} = ({mcfg.enc_depth} + {4 * mcfg.dec_depth}) x {n} "
-          f"frames + {4 * mcfg.dec_depth} x {n_sym} symmetric edges); "
+          f"{expect_attn} = (({mcfg.enc_depth} + {4 * mcfg.dec_depth}) x {n} "
+          f"frames + {4 * mcfg.dec_depth} x {n_sym} symmetric edges) x "
+          f"{n_split} entries); "
           f"pack launches {launches['pack_rows']} (expected {expect_pack} = "
           f"{per_match} tables x ({tracked} tracked frames + {len(warped)} "
           f"pose-warped edges + {len(sym_pairs)} symmetric batches)); "
@@ -1321,7 +1365,72 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None):
                "edge_store_mb": store_mb, "pregather_cache_mb": cache_mb}
     if "state_save_s" in timing:
         timings["state_save_s"] = timing["state_save_s"]
+    if system._bdev is not None:
+        timings["mirror_rows_copied"] = system.mirror_rows_copied
+        if system.graph.idx_ii2jj.device != system._bdev or \
+                system._marena.X.device != system._bdev:
+            raise SystemExit(f"{label}: the edge store or the mirror is not "
+                             f"on the backend device")
     return launches, system, record, timings
+
+
+def _graph_from_record(record, cfg, dev, **graph_kw):
+    """A backend round's inputs kept by ``drive_frontend`` (the arena's
+    rows and the edge store) copied to ``dev``: (arena, ``FactorGraph``
+    with ``cfg`` and ``graph_kw``)."""
+    from mast3r_slam_torch import global_opt
+    from mast3r_slam_torch.frame import make_arena
+
+    A = record["arena"]
+    arena = make_arena(A["X"].shape[0], *IMG_HW, 1, 1, dev)
+    for k, t in A.items():
+        getattr(arena, k).copy_(t.to(dev))
+    arena.n_size = record["n_size"]
+    if "mesh" not in graph_kw:
+        graph_kw["store_device"] = dev
+    g = global_opt.FactorGraph(type("Engine", (), {"device": dev})(),
+                               IMG_HW[0] * IMG_HW[1], cfg, K=record["K"],
+                               **graph_kw)
+    n = record["n_edges"]
+    if n > g.max_edges:
+        g._grow(n)
+    for k, t in record["store"].items():
+        getattr(g, k)[:n] = t.to(g.dev)
+    g.ii[:n], g.jj[:n], g.n_edges = record["ii"][:n], record["jj"][:n], n
+    return arena, g
+
+
+def _round_system(arena, g, residual, pose_floor=1):
+    """The inputs of a GN solve of ``g``'s edges on ``arena`` as
+    ``FactorGraph.solve_poses`` prepares them: (Twc, Xs, Cs, ii2, jj2,
+    idx2, vm2, Q2, edge_valid), the edges two-way in a bucket of 4, the
+    poses padded to a multiple of ``pose_floor`` with keyframe 0 (inert: it
+    has no edge)."""
+    import torch
+
+    from mast3r_slam_torch import global_opt
+
+    dev = g.dev
+    n = g.n_edges
+    unique = g.get_unique_kf_idx()
+    remap = {int(k): c for c, k in enumerate(unique)}
+    E_b = global_opt._next_bucket(n, 4)
+    ii2 = np.zeros(2 * E_b, np.int64)
+    jj2 = np.zeros(2 * E_b, np.int64)
+    ev = np.zeros(2 * E_b, bool)
+    for e in range(n):
+        a, b = remap[int(g.ii[e])], remap[int(g.jj[e])]
+        ii2[e], jj2[e], ii2[E_b + e], jj2[E_b + e] = a, b, b, a
+        ev[e] = ev[E_b + e] = True
+    ii2, jj2, ev = (torch.from_numpy(x).to(dev) for x in (ii2, jj2, ev))
+    uidx = np.zeros(-(-len(unique) // pose_floor) * pose_floor, np.int64)
+    uidx[:len(unique)] = unique
+    T0, Xs, Cs, idx2, vm2, Q2 = global_opt._prep_system(
+        arena.X, arena.C, arena.N, arena.T_WC, *g._stores(),
+        torch.from_numpy(uidx).to(dev), g._K(), E_b, (arena.img_hw[1],
+                                                      arena.img_hw[0]),
+        residual == "calib")
+    return T0, Xs, Cs, ii2, jj2, idx2, vm2, Q2, ev
 
 
 def check_ba(record, cfg, card):
@@ -1331,48 +1440,17 @@ def check_ba(record, cfg, card):
     of their largest entry, the same iteration count and ok, the poses
     within ``BA_POSE_ATOL``; the card solving the copied inputs again
     gives the drive's result within the same limit."""
-    import torch
-
-    from mast3r_slam_torch import global_opt
-    from mast3r_slam_torch.frame import make_arena
     from mast3r_slam_torch.ops import ba
 
     residual = record["residual"]
-    calib = residual == "calib"
     img_wh = IMG_HW[::-1]
     results = {}
     for dev in ("cuda", "cpu"):
-        A = record["arena"]
-        arena = make_arena(A["X"].shape[0], *IMG_HW, 1, 1, dev)
-        for k, t in A.items():
-            getattr(arena, k).copy_(t.to(dev))
-        arena.n_size = record["n_size"]
-        g = global_opt.FactorGraph(type("Engine", (), {"device": dev})(),
-                                   IMG_HW[0] * IMG_HW[1], cfg, K=record["K"],
-                                   store_device=dev)
-        n = record["n_edges"]
-        if n > g.max_edges:
-            g._grow(n)
-        for k, t in record["store"].items():
-            getattr(g, k)[:n] = t.to(dev)
-        g.ii[:n], g.jj[:n], g.n_edges = record["ii"][:n], record["jj"][:n], n
+        arena, g = _graph_from_record(record, cfg, dev)
         upd, Twc, stats = g.solve_poses(arena, residual)
         # one GN iteration's H and g at the round's starting poses
-        unique = g.get_unique_kf_idx()
-        remap = {int(k): c for c, k in enumerate(unique)}
-        E_b = global_opt._next_bucket(n, 4)
-        ii2 = np.zeros(2 * E_b, np.int64)
-        jj2 = np.zeros(2 * E_b, np.int64)
-        ev = np.zeros(2 * E_b, bool)
-        for e in range(n):
-            a, b = remap[int(g.ii[e])], remap[int(g.jj[e])]
-            ii2[e], jj2[e], ii2[E_b + e], jj2[E_b + e] = a, b, b, a
-            ev[e] = ev[E_b + e] = True
-        ii2, jj2, ev = (torch.from_numpy(x).to(dev) for x in (ii2, jj2, ev))
-        T0, Xs, Cs, idx2, vm2, Q2 = global_opt._prep_system(
-            arena.X, arena.C, arena.N, arena.T_WC, *g._stores(),
-            torch.from_numpy(unique.astype(np.int64)).to(dev), g._K(), E_b,
-            img_wh, calib)
+        T0, Xs, Cs, ii2, jj2, idx2, vm2, Q2, ev = _round_system(
+            arena, g, residual)
         pre = ba._pregather_edges(Xs, Cs, ii2, jj2, idx2, vm2, Q2, ev, g.cfg,
                                   min(g.cfg.chunk_points, idx2.shape[1]),
                                   img_wh)
@@ -1390,7 +1468,8 @@ def check_ba(record, cfg, card):
     pose_err = float((T_c - T_h).abs().max())
     drive_err = float((T_drive.cpu() - T_c).abs().max())
     print(f"BA check (last round, {record['n_edges']} edges, "
-          f"{len(unique)} keyframes): card against CPU, one iteration's H "
+          f"{len(g.get_unique_kf_idx())} keyframes): card against CPU, one "
+          f"iteration's H "
           f"{h_err:.3g} and g {g_err:.3g} relative (limit {BA_HG_RTOL}); "
           f"iterations {st_c[0]} / {st_h[0]} (the drive {st_drive[0]}), "
           f"last |dx| {st_c[1]:.4g} / {st_h[1]:.4g}, ok {st_c[2]} / "
@@ -1599,28 +1678,31 @@ def check_state(system, engine, path, save_s, card):
             "state_normalise_pose_shift": shift}
 
 
-def compare_threaded_inline(runs, card, label):
+def compare_threaded_inline(runs, card, label,
+                            modes=("threaded", "inline")):
     """A drive's frames with the backend on its thread
     (``config/base.yaml``) beside the same frames with ``single_thread:
-    True``, on the host clock as the frame loop sees them: ``runs`` holds
-    each mode's drives (run in turns)."""
+    True`` (or two other ``modes``), on the host clock as the frame loop
+    sees them: ``runs`` holds each mode's drives (run in turns)."""
     keys = ("frame_ms", "keyframe_frame_ms", "tracked_frame_ms",
             "drive_ms", "stats")
-    print(f"{label}, threaded against inline [{card}]:")
+    print(f"{label}, {modes[0]} against {modes[1]} [{card}]:")
     for k in keys:
-        for mode in ("threaded", "inline"):
+        for mode in modes:
             vals = [t[k] for t in runs[mode]]
             vals = [_r(v) if isinstance(v, list) else
                     round(v, 1) if isinstance(v, float) else v for v in vals]
             print(f"  {k} {mode}: {'; '.join(map(str, vals))}")
     return {f"compare_{mode}_{k}": [t[k] for t in runs[mode]]
-            for mode in ("threaded", "inline") for k in keys}
+            for mode in modes for k in keys}
 
 
-def _oracle_system(seq, path, single_thread, retrieval=False, **engine_kw):
+def _oracle_system(seq, path, single_thread, retrieval=False,
+                   backend_device=None, **engine_kw):
     """``SLAMSystem`` on the card over an oracle clip at the config
     ``path``, ``single_thread`` as given, with the oracle database if
-    ``retrieval``; ``engine_kw`` go to ``OracleEngine``."""
+    ``retrieval``, the backend on ``backend_device``; ``engine_kw`` go to
+    ``OracleEngine``."""
     from mast3r_slam_torch.pipeline import SLAMSystem
     from mast3r_slam_torch.testing import OracleEngine, make_oracle_retrieval
     from mast3r_slam_torch.utils.config import load_config
@@ -1631,7 +1713,7 @@ def _oracle_system(seq, path, single_thread, retrieval=False, **engine_kw):
     engine = OracleEngine(seq, device="cuda", **engine_kw)
     return SLAMSystem(cfg, engine, (seq.h, seq.w), buffer=32, device="cuda",
                       retrieval=make_oracle_retrieval(seq, engine)
-                      if retrieval else None)
+                      if retrieval else None, backend_device=backend_device)
 
 
 def _oracle_run(system, seq, lo=0, hi=None, drain_each=False):
@@ -2236,6 +2318,531 @@ def drive_oracle_loop(card):
             "desc_fallbacks": nf, "retrieval_edges": stats["retrieval_edges"]}
 
 
+def build_tp_engine(sd, mcfg, devices=None):
+    """The production network (the same weights, bf16 heads) split over a
+    (1, 2) mesh of ``devices`` (default: the one card twice): every
+    attention's heads and every MLP's hidden columns halved between them
+    (``InferenceEngine(mesh=)``, ``--tp 2``)."""
+    import torch
+
+    from mast3r_slam_torch.inference import InferenceEngine
+    from mast3r_slam_torch.models.mast3r import MASt3R
+    from mast3r_slam_torch.parallel.mesh import make_mesh
+
+    model = MASt3R(mcfg)
+    model.load_state_dict(sd)
+    card0 = torch.device("cuda", 0)
+    mesh = make_mesh(n_edge=1, n_model=2,
+                     devices=devices or [card0, card0])
+    return InferenceEngine(model, IMG_HW, device="cuda", mesh=mesh)
+
+
+def check_tp(engine, eng_tp, mcfg, frames, peak_flops, peak_bw, card):
+    """Tensor parallel on the card: the split engine against the unsplit one
+    on the clip's first two frames, encode and decode + heads (feat, X, C,
+    D, Q: cosine and relative error within ``TP_COS_MIN`` /
+    ``TP_REL_MAX``); kernel A's launches per encode and per decode (one a
+    block and entry); both engines' encode and decode + heads timed in
+    turns; and kernel A at the split heads' shapes against its plain
+    version, timed beside SDPA at the same shapes and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from mast3r_slam_torch.ops.attention import attention_plain, \
+        flash_attention
+
+    norm = [torch.from_numpy(f.astype(np.float32) * (1.0 / 127.5) - 1.0)
+            [None].cuda() for f in frames[:2]]
+    outs, counts = {}, {}
+    for tag, eng in (("unsplit", engine), ("tp", eng_tp)):
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        (f1, p1), (f2, p2) = (eng.encode(x) for x in norm)
+        torch.cuda.synchronize()
+        per_encode = flash_attention.launches // 2
+        flash_attention.launches = 0
+        v1, v2 = eng.decode_pair(f1, p1, f2, p2)
+        torch.cuda.synchronize()
+        counts[tag] = (per_encode, flash_attention.launches)
+        outs[tag] = {"feat": torch.cat([f1, f2]),
+                     **{k: torch.cat([a.flatten(), b.flatten()])
+                        for k, a, b in zip("XCDQ", v1, v2)}}
+    n_model = eng_tp.mesh.shape["model"]
+    devs = eng_tp.mesh.axis_devices("model")
+    where = "on one card" if len(set(devs)) == 1 else \
+        "over " + ", ".join(map(str, devs))
+    want = (mcfg.enc_depth * n_model, 4 * mcfg.dec_depth * n_model)
+    print(f"tensor parallel (1, {n_model}) {where}: kernel A launches "
+          f"per encode / decode {counts['tp'][0]} / {counts['tp'][1]} "
+          f"(unsplit {counts['unsplit'][0]} / {counts['unsplit'][1]}; "
+          f"expected {want[0]} / {want[1]})")
+    if counts["tp"] != want:
+        raise SystemExit("the tensor-parallel engine did not run kernel A on "
+                         "each entry's heads")
+    res = {"tp_attention_launches_per_encode": counts["tp"][0],
+           "tp_attention_launches_per_decode": counts["tp"][1]}
+    ok = True
+    for k, ref in outs["unsplit"].items():
+        got = outs["tp"][k]
+        cos, rel = _cos_rel(ref, got)
+        finite = bool(torch.isfinite(got).all())
+        ok &= finite and cos >= TP_COS_MIN and rel <= TP_REL_MAX
+        res[f"tp_{k}_cos"], res[f"tp_{k}_rel"] = cos, rel
+        print(f"  {k}: cosine {cos:.7f}, relative error {rel:.3e} (bounds "
+              f"{TP_COS_MIN}, {TP_REL_MAX}), finite {finite} [{card}]")
+    if not ok:
+        raise SystemExit("the tensor-parallel engine disagrees with the "
+                         "unsplit one")
+    f1, p1 = engine.encode(norm[0])
+    f2, p2 = engine.encode(norm[1])
+    res.update(timed_in_turns("encode", {
+        "unsplit": lambda: engine.encode(norm[0]),
+        "tp": lambda: eng_tp.encode(norm[0])}, card))
+    res.update(timed_in_turns("decode_and_heads", {
+        "unsplit": lambda: engine.decode_pair(f1, p1, f2, p2),
+        "tp": lambda: eng_tp.decode_pair(f1, p1, f2, p2)}, card))
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = {}
+    for label, (B, H, Nq, Nk, Dh) in TP_ATTN_SHAPES.items():
+        q, k, v = (torch.randn(B, H, n, Dh, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for n in (Nq, Nk, Nk))
+        err = (flash_attention(q, k, v).float()
+               - attention_plain(q, k, v).float()).abs().max().item()
+        if not err <= ATTN_TOL["bf16"]:
+            raise SystemExit(f"kernel A at the split {label} shape "
+                             f"disagrees with its plain version ({err})")
+        flops = 4.0 * B * H * Nq * Nk * Dh
+        nbytes = 2.0 * (2 * B * H * Nq * Dh + 2 * B * H * Nk * Dh)
+        t = {"ms": time_ms(lambda: flash_attention(q, k, v)),
+             "plain_ms": time_ms(lambda: attention_plain(q, k, v)),
+             "library_ms": time_ms(
+                 lambda: F.scaled_dot_product_attention(q, k, v)),
+             "bound_ms": max(flops / peak_flops, nbytes / peak_bw) * 1e3,
+             "bound_by": "operations" if flops / peak_flops
+             >= nbytes / peak_bw else "bytes",
+             "max_abs_err": err}
+        shapes[label] = t
+        print(f"attention bf16 split {label} ({B},{H},{Nq},{Dh}): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}), max abs err {err:.3e} [{card}]")
+    res["attention_tp_shapes"] = shapes
+    return res
+
+
+def _graph_copy(g, cfg, **graph_kw):
+    """A new ``FactorGraph`` holding ``g``'s edges, built with ``graph_kw``
+    (a mesh) and ``cfg``."""
+    from mast3r_slam_torch.global_opt import FactorGraph
+
+    h = FactorGraph(g.engine, g.hw, cfg, K=g.K, **graph_kw)
+    n = g.n_edges
+    if n > h.max_edges:
+        h._grow(n)
+    for dst, src in zip(h._stores(), g._stores()):
+        dst[:n] = src[:n].to(dst.device)
+    h.ii[:n], h.jj[:n], h.n_edges = g.ii[:n], g.jj[:n], n
+    return h
+
+
+def _timed_solve(g, arena, rtype):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    upd, T, stats = g.solve_poses(arena, rtype)
+    torch.cuda.synchronize()
+    return upd, T, stats, (time.perf_counter() - t0) * 1e3
+
+
+def check_sharded_ba(record, cfg, card, devices=None):
+    """The BA sharded over a 2-entry mesh of the one card
+    (``FactorGraph(mesh=)``, ``local_opt.sharded_ba``), edge and map mode,
+    against the single-device solve of the same graph: the 16-frame oracle
+    drive's graph (converged) with equal iterations and poses within
+    ``SHARD_POSE_ATOL``; the production drive's last round (unconverged,
+    chaotic: ``ROADMAP.md`` C): its first iteration's reduced (H, g)
+    within ``SHARD_HG_RTOL`` of the single-device system, one iteration's
+    and the full solve's poses printed.  Each
+    solve timed on the host clock after a warm-up (the sharded solves
+    without the pregather cache, one (H, g) reduction an iteration).  The
+    mesh's entries are ``devices`` (default: the one card twice)."""
+    import torch
+
+    from mast3r_slam_torch.ops import ba
+    from mast3r_slam_torch.parallel.mesh import make_mesh
+    from mast3r_slam_torch.parallel.sharded_ba import \
+        sharded_normal_equations
+    from mast3r_slam_torch.testing import SyntheticSequence
+
+    card0 = torch.device("cuda", 0)
+    devices = devices or [card0, card0]
+    mesh = make_mesh(n_edge=len(devices), devices=devices)
+    seq = SyntheticSequence(n_frames=16, h=48, w=64, seed=0, traj_scale=0.5)
+    system = _oracle_system(seq, "config/eval_no_calib.yaml", True)
+    _oracle_run(system, seq)
+    _finish(system, "oracle drive for the sharded BA")
+    out, ok = {}, True
+    graphs = {"single": system.graph}
+    for mode in ("edge", "map"):
+        graphs[mode] = _graph_copy(system.graph, system.cfg, mesh=mesh,
+                                   shard_mode=mode)
+    solved = {}
+    for tag, g in graphs.items():
+        _timed_solve(g, system.arena, "ray")            # warm-up
+        solved[tag] = _timed_solve(g, system.arena, "ray")
+    upd0, T0, st0, ms0 = solved["single"]
+    for mode in ("edge", "map"):
+        # map mode pads the poses to a multiple of the edge axis: the rows
+        # past the single-device solve's are padding, written nowhere
+        upd, T, st, ms = solved[mode]
+        err = float((T[:len(T0)].to(T0.device) - T0).abs().max())
+        same = np.array_equal(upd[:len(upd0)], upd0) and bool(
+            (upd[len(upd0):] >= system.arena.buffer).all()) and \
+            st[0] == st0[0] and st[2]
+        ok &= same and err <= SHARD_POSE_ATOL
+        out[f"oracle_{mode}_pose_abs"], out[f"oracle_{mode}_ms"] = err, ms
+        print(f"sharded BA ({mode}, {len(devices)} entries) on the oracle "
+              f"graph ({system.graph.n_edges} edges): {st[0]} iterations "
+              f"(single-device {st0[0]}), poses {err:.3g} apart (limit "
+              f"{SHARD_POSE_ATOL}); {ms:.2f} ms against {ms0:.2f} ms "
+              f"single-device [{card}]")
+    out["oracle_single_ms"] = ms0
+
+    # the production drive's last round: the reduced (H, g) of its first
+    # iteration against the single-device one (the round's solve is too
+    # ill-conditioned for its poses to show the reduction), then one
+    # iteration's and the full solve's poses, printed
+    rtype = record["residual"]
+    arena, g0 = _graph_from_record(record, cfg, "cuda")
+    T0, Xs, Cs, ii2, jj2, idx2, vm2, Q2, ev = _round_system(
+        arena, g0, rtype, pose_floor=len(devices))
+    img_wh = IMG_HW[::-1]
+    pre = ba._pregather_edges(Xs, Cs, ii2, jj2, idx2, vm2, Q2, ev, g0.cfg,
+                              min(g0.cfg.chunk_points, idx2.shape[1]),
+                              img_wh)
+    H0, gv0 = ba._assemble_dense(
+        *ba._accumulate_pre(rtype, T0, ii2, jj2, pre, g0._K(), img_wh,
+                            g0.cfg), ii2, jj2, T0.shape[0], g0.cfg.pin)
+    for mode in ("edge", "map"):
+        H, gv = sharded_normal_equations(
+            mesh, T0, Xs, Cs, ii2, jj2, idx2, vm2, Q2, ev, g0._K(), rtype,
+            img_wh, g0.cfg, shard_mode=mode)
+        h_err = float((H - H0).abs().max() / H0.abs().max())
+        g_err = float((gv - gv0).abs().max() / gv0.abs().max())
+        ok &= h_err <= SHARD_HG_RTOL and g_err <= SHARD_HG_RTOL
+        out[f"production_{mode}_H_rel"] = h_err
+        out[f"production_{mode}_g_rel"] = g_err
+        print(f"sharded BA ({mode}) on the production drive's last round "
+              f"({record['n_edges']} edges): the first iteration's reduced H "
+              f"{h_err:.3g} and g {g_err:.3g} from the single-device ones, "
+              f"relative (limit {SHARD_HG_RTOL}) [{card}]")
+    one = copy.deepcopy(cfg)
+    one["local_opt"]["max_iters"] = 1
+    for c, tag in ((one, "one_iteration"), (cfg, "full")):
+        arena, g0 = _graph_from_record(record, c, "cuda")
+        res = {"single": _timed_solve(g0, arena, rtype)}
+        for mode in ("edge", "map"):
+            _, g = _graph_from_record(record, c, "cuda", mesh=mesh,
+                                      shard_mode=mode)
+            res[mode] = _timed_solve(g, arena, rtype)
+        _, T1, st1, ms1 = res["single"]
+        for mode in ("edge", "map"):
+            _, T, st, ms = res[mode]
+            err = float((T[:len(T1)] - T1).abs().max())
+            ok &= st[0] == st1[0] or tag == "full"
+            out[f"production_{tag}_{mode}_pose_abs"] = err
+            out[f"production_{tag}_{mode}_ms"] = ms
+            print(f"sharded BA ({mode}) on the production drive's last round, "
+                  f"{tag.replace('_', ' ')}: {st[0]} iterations "
+                  f"(single-device {st1[0]}), poses {err:.3g} apart (printed, "
+                  f"not held); {ms:.2f} ms against {ms1:.2f} ms [{card}]")
+        out[f"production_{tag}_single_ms"] = ms1
+    if not ok:
+        raise SystemExit("the sharded BA disagrees with the single-device "
+                         "solve")
+    return out
+
+
+def drive_oracle_backend_device(card, backend_device=0):
+    """The backend on device 0 (``backend_device=0``: the mirror arena on
+    the one card beside the live arena): the 16-frame oracle clip inline
+    against the same drive without it, stats, edges and BA iterations
+    equal and poses within ``BDEV_POSE_ATOL``, the rows copied to the
+    mirror counted per round."""
+    from mast3r_slam_torch.testing import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=16, h=48, w=64, seed=0, traj_scale=0.5)
+    path = "config/eval_no_calib.yaml"
+    runs = {}
+    for tag, bdev in (("single", None), ("backend_device", backend_device)):
+        system = _oracle_system(seq, path, True, backend_device=bdev)
+        t0 = time.perf_counter()
+        _oracle_run(system, seq)
+        _finish(system, f"oracle {tag}")
+        runs[tag] = (system, (time.perf_counter() - t0) * 1e3)
+    (ref, ref_ms), (bd, bd_ms) = runs["single"], runs["backend_device"]
+    n = ref.arena.n_size
+    same = bd.stats == ref.stats and bd.ba_iters_total == ref.ba_iters_total \
+        and bd.arena.n_size == n and np.array_equal(
+            bd.graph.ii[:bd.graph.n_edges], ref.graph.ii[:ref.graph.n_edges])
+    err = float((bd.arena.T_WC[:n] - ref.arena.T_WC[:n]).abs().max()) \
+        if bd.arena.n_size == n else float("inf")
+    rounds = bd.stats["keyframes"]
+    print(f"oracle drive with backend_device={backend_device}: stats "
+          f"{bd.stats}, the "
+          f"drive's without it {same}, keyframe poses {err:.3g} apart (limit "
+          f"{BDEV_POSE_ATOL}); {bd.mirror_rows_copied} rows copied to the "
+          f"mirror in {rounds} rounds; {bd_ms:.1f} ms against {ref_ms:.1f} "
+          f"[{card}]")
+    if not same or not err <= BDEV_POSE_ATOL or \
+            bd._marena.X.device.type != "cuda":
+        raise SystemExit("the oracle drive with a backend device differs")
+    return {"oracle_pose_abs": err, "oracle_mirror_rows": bd.mirror_rows_copied,
+            "oracle_rounds": rounds, "oracle_ms": bd_ms,
+            "oracle_single_ms": ref_ms}
+
+
+def check_kernels_off_current(cards, card):
+    """Each kernel launched with its tensors on one card and another card
+    current, both ways between the first two ``cards``: the wrappers make
+    the tensors' card current, kernel A opts in to its shared memory there
+    and ``gn_solve`` sizes its grid for it; every output against its plain
+    version as in the kernel phase."""
+    import torch
+
+    from mast3r_slam_torch import testing
+    from mast3r_slam_torch.ops import gn
+    from mast3r_slam_torch.ops.attention import attention_plain, \
+        flash_attention
+    from mast3r_slam_torch.ops.pack import pack_rows, pack_rows_plain
+    from mast3r_slam_torch.tracker import TrackerConfig
+
+    rng = np.random.default_rng(0)
+    offs = (0, 1, 64, 65)
+    out = {}
+    for home, other in ((cards[0], cards[1]), (cards[1], cards[0])):
+        qkv = [torch.from_numpy(rng.standard_normal((1, 12, 768, 64))
+                                .astype(np.float32)).to(home, torch.bfloat16)
+               for _ in range(3)]
+        pre, T = testing.gn_problem(196608, 196608, home)
+        scal = gn.rot_scalars(T)
+        flat = torch.from_numpy(rng.integers(-127, 128, (1, 4096, 24))).to(
+            home, torch.int8)
+        with torch.cuda.device(other):
+            att = flash_attention(*qkv)
+            sums = gn.gn_sums(pre.pts, scal, 1.345)
+            T1, ok1, it1 = gn.gn_solve(pre, T, TrackerConfig())
+            packed = pack_rows(flat, offs, 0, 4096)
+        torch.cuda.synchronize(home)
+        a_err = float((att.float() - attention_plain(*qkv).float()).abs()
+                      .max())
+        err, tol = testing.gn_sums_check(
+            sums, gn.gn_terms_plain(pre.pts, scal, 1.345))
+        Tp, okp, itp = gn.gn_solve_plain(pre, T, TrackerConfig())
+        t_err = float((T1 - Tp).abs().max())
+        same = bool(torch.equal(packed, pack_rows_plain(flat, offs, 0,
+                                                        4096)))
+        ok = (att.device == sums.device == packed.device == home
+              and a_err <= ATTN_TOL["bf16"] and bool((err <= tol).all())
+              and ok1 == okp and it1 == itp and t_err <= GN_POSE_ATOL
+              and same)
+        print(f"kernels on {home} with {other} current: attention max abs "
+              f"err {a_err:.3e}, GN sums within tolerance "
+              f"{bool((err <= tol).all())}, gn_solve pose {t_err:.3g} "
+              f"({it1} / {itp} iterations), pack bitwise {same} [{card}]")
+        if not ok:
+            raise SystemExit("a kernel launched off the current card "
+                             "disagrees with its plain version")
+        out[f"{home}_attention_err"] = a_err
+        out[f"{home}_gn_solve_pose_abs"] = t_err
+    return out
+
+
+def _nccl_ba_worker(rank, world, addr, path):
+    """One process of ``check_nccl_ba``: card ``rank``, the NCCL group, the
+    mesh across the processes, the edge- and map-sharded solves of the
+    inputs at ``path``; writes its poses, iterations and times."""
+    import torch
+    import torch.distributed as dist
+
+    from mast3r_slam_torch.ops import ba
+    from mast3r_slam_torch.parallel import sharded_ba
+    from mast3r_slam_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(addr, world, rank, device="cuda")
+    try:
+        mesh = make_mesh()
+        (_, dev), = mesh.local_edge_entries()
+        d = np.load(f"{path}/inputs.npz")
+        cfg = ba.BAConfig(**json.loads(str(d["cfg"])))
+        res = {}
+        for mode, fn in (("edge", sharded_ba.sharded_gauss_newton),
+                         ("map", sharded_ba.sharded_gauss_newton_mapshard)):
+            args = [torch.from_numpy(d[k]).to(dev) for k in _BA_KEYS]
+            for _ in range(2):                      # a warm-up, then timed
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                T, it, _, ok = fn(mesh, *args, "ray",
+                                  tuple(int(x) for x in d["img_wh"]), cfg,
+                                  return_stats=True)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            res[f"T_{mode}"] = T.cpu().numpy()
+            res[f"it_{mode}"] = np.int64(it)
+            res[f"ok_{mode}"] = np.bool_(ok)
+            res[f"ms_{mode}"] = np.float64((time.perf_counter() - t0) * 1e3)
+        np.savez(f"{path}/result_{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+_BA_KEYS = ("T0", "Xs", "Cs", "ii", "jj", "idx", "vm", "Q", "ev", "K")
+
+
+def check_nccl_ba(cards, card):
+    """The BA sharded across processes: the oracle drive's graph solved by
+    2 and by ``len(cards)`` processes, one card each, joined in an NCCL
+    group over a localhost port (``parallel.mesh.init_distributed``; the
+    (H, g) reduction an ``all_reduce``), edge and map mode.  Every
+    process's poses must be bitwise equal, within ``SHARD_POSE_ATOL`` of
+    the single-card solve with its iterations.  Each process is killed
+    past ``NCCL_DEADLINE_S``."""
+    import multiprocessing as mp
+    import socket
+
+    import torch
+
+    from mast3r_slam_torch.ops import ba
+    from mast3r_slam_torch.testing import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=16, h=48, w=64, seed=0, traj_scale=0.5)
+    system = _oracle_system(seq, "config/eval_no_calib.yaml", True)
+    _oracle_run(system, seq)
+    _finish(system, "oracle drive for the NCCL BA")
+    g = system.graph
+    out = {}
+    ctx = mp.get_context("spawn")
+    for world in sorted({2, len(cards)}):
+        sysm = _round_system(system.arena, g, "ray", pose_floor=world)
+        inputs = dict(zip(_BA_KEYS, (t.cpu().numpy() for t in
+                                     (*sysm, g._K()))))
+        T1, it1, _, _ = ba.gauss_newton(
+            *(torch.from_numpy(inputs[k]).cuda() for k in _BA_KEYS[:-1]),
+            torch.from_numpy(inputs["K"]).cuda(), "ray", (seq.w, seq.h),
+            g.cfg)
+        T1 = T1.cpu().numpy()
+        with tempfile.TemporaryDirectory() as tmp, socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            addr = f"localhost:{sk.getsockname()[1]}"
+            sk.close()
+            np.savez(f"{tmp}/inputs.npz", **inputs,
+                     cfg=json.dumps(g.cfg._asdict()),
+                     img_wh=np.asarray((seq.w, seq.h)))
+            procs = [ctx.Process(target=_nccl_ba_worker,
+                                 args=(r, world, addr, tmp))
+                     for r in range(world)]
+            for pr in procs:
+                pr.start()
+            end = time.monotonic() + NCCL_DEADLINE_S
+            for pr in procs:
+                pr.join(max(end - time.monotonic(), 1.0))
+            hung = [pr for pr in procs if pr.is_alive()]
+            for pr in hung:
+                pr.kill()
+                pr.join()
+            if hung or any(pr.exitcode for pr in procs):
+                raise SystemExit(f"NCCL BA in {world} processes: exit codes "
+                                 f"{[pr.exitcode for pr in procs]}")
+            res = [np.load(f"{tmp}/result_{r}.npz") for r in range(world)]
+            for mode in ("edge", "map"):
+                same = all(np.array_equal(r[f"T_{mode}"], res[0][f"T_{mode}"])
+                           for r in res)
+                err = float(np.abs(res[0][f"T_{mode}"][:len(T1)]
+                                   - T1).max())
+                its = [int(r[f"it_{mode}"]) for r in res]
+                ms = [float(r[f"ms_{mode}"]) for r in res]
+                print(f"sharded BA ({mode}) over NCCL in {world} processes, "
+                      f"one card each: poses bitwise equal in every process "
+                      f"{same}, {err:.3g} from the single-card solve (limit "
+                      f"{SHARD_POSE_ATOL}); iterations {its} (single {it1}); "
+                      f"{_r(ms)} ms [{card}]")
+                if not (same and err <= SHARD_POSE_ATOL
+                        and set(its) == {it1}):
+                    raise SystemExit("the NCCL-sharded BA disagrees")
+                out[f"nccl_{world}_{mode}_pose_abs"] = err
+                out[f"nccl_{world}_{mode}_ms"] = ms
+    return out
+
+
+def multi_card_main(args, cards, peak_flops, peak_bw, card):
+    """``--cards N``: only the multi-card phases, across the first N cards:
+    the kernels launched with another card current; the network split over
+    cards 0 and 1 against the unsplit one, and the production frames
+    driven through it; the production drive threaded with the backend on
+    card 1 in turns with the drive without it, and once inline; the BA
+    sharded over the N cards in one process and over NCCL in 2 and N
+    processes; the oracle drive with the backend on card 1."""
+    import torch
+
+    from mast3r_slam_torch.testing import make_clip
+    from mast3r_slam_torch.utils.config import load_config
+
+    cfg = load_config("config/base.yaml")
+    cfg_inline = copy.deepcopy(cfg)
+    cfg_inline["single_thread"] = True
+    res = {"kernels_off_current": check_kernels_off_current(cards, card)}
+    engine, mcfg, sd = build_engine(args.seed)
+    frames = make_clip(args.seed, N_FRAMES + 1, IMG_HW, CLIP_SHIFT,
+                       CLIP_TEXTURE)
+    eng_tp = build_tp_engine(sd, mcfg, devices=cards[:2])
+    del sd
+    tp = check_tp(engine, eng_tp, mcfg, frames, peak_flops, peak_bw, card)
+    launches_tp, system_tp, _, tp["drive"] = drive_frontend(
+        eng_tp, mcfg, cfg, frames[:N_FRAMES], card,
+        "tensor-parallel drive over cards 0 and 1")
+    del system_tp, eng_tp
+    torch.cuda.empty_cache()
+    runs = {"backend_device": [], "threaded": []}
+    record = None
+    for mode in ("backend_device", "threaded", "threaded", "backend_device"):
+        launches_b, system_b, rec, t = drive_frontend(
+            engine, mcfg, cfg, frames[:N_FRAMES], card,
+            f"production drive, {mode}, run {len(runs[mode]) + 1}",
+            backend_device=1 if mode == "backend_device" else None)
+        if mode == "backend_device":
+            record = rec
+            if system_b.graph.idx_ii2jj.device != cards[1]:
+                raise SystemExit("the edge store is not on card 1")
+        runs[mode].append(t)
+        del system_b
+        torch.cuda.empty_cache()
+    res["backend_device"] = compare_threaded_inline(
+        runs, card, "production drive", modes=("backend_device",
+                                                "threaded"))
+    res["backend_device"]["mirror_rows_copied"] = [
+        t["mirror_rows_copied"] for t in runs["backend_device"]]
+    _, system_i, _, t_inline = drive_frontend(
+        engine, mcfg, cfg_inline, frames[:N_FRAMES], card,
+        "production drive, inline, backend on card 1", backend_device=1)
+    res["backend_device"]["inline"] = t_inline
+    del system_i
+    torch.cuda.empty_cache()
+    res["backend_device"].update(drive_oracle_backend_device(card, 1))
+    res["sharded_ba"] = check_sharded_ba(record, cfg, card, devices=cards)
+    res["nccl_ba"] = check_nccl_ba(cards, card)
+    kinds = ("attention", "gn_solve", "pack_rows")
+    if not all(launches_tp[k] > 0 and launches_b[k] > 0 for k in kinds):
+        raise SystemExit("a kernel of the main path was not launched")
+    print(f"tensor parallel over two cards: {json.dumps(tp)}")
+    print(f"multi-card: {json.dumps(res)}")
+    print(json.dumps({"launches_by_drive": {
+        "tp": launches_tp, "backend_device": launches_b}}))
+    return 0
+
+
 def device_busy(fn, top=12):
     """Sum of the device kernels' times in one traced call of ``fn``
     (``torch.profiler``), printing the ``top`` kernels by time, and the
@@ -2263,6 +2870,10 @@ def device_busy(fn, top=12):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cards", type=int, default=1,
+                    help="run only the multi-card phases across this many "
+                         "cards (needs as many; without it the script "
+                         "needs one card and runs every other phase)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2291,6 +2902,19 @@ def main(argv=None):
                 print(f"  {src}: {line.strip()}")
 
     tc_ops = tensor_core_instructions()
+    if args.cards > 1:
+        if torch.cuda.device_count() < args.cards:
+            raise SystemExit(f"--cards {args.cards}: "
+                             f"{torch.cuda.device_count()} cards present")
+        rc = multi_card_main(args, [torch.device("cuda", i)
+                                    for i in range(args.cards)],
+                             peak_flops, peak_bw, card)
+        faulthandler.cancel_dump_traceback_later()
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return rc
 
     from mast3r_slam_torch.ops.matching import MatchingConfig
     from mast3r_slam_torch.testing import make_clip
@@ -2320,8 +2944,10 @@ def main(argv=None):
     eng_q, eng_l, int8 = check_int8(engine, sd, mcfg, frames, peak_flops,
                                     peak_bw, card)
     int8.update(check_int8_local_head(eng_q, eng_l, frames, card))
+    eng_tp = build_tp_engine(sd, mcfg)
     del sd, eng_l
     torch.cuda.empty_cache()
+    tp = check_tp(engine, eng_tp, mcfg, frames, peak_flops, peak_bw, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, system, record, timings = drive_frontend(
             engine, mcfg, cfg, frames[:N_FRAMES], card, "production drive",
@@ -2333,6 +2959,7 @@ def main(argv=None):
                    if k.endswith(("_ms", "_kernels"))})
     stages.update(timings)
     stages.update(check_ba(record, cfg, card))
+    multi = {"sharded_ba": check_sharded_ba(record, cfg, card)}
     stages.update(backend_breakdown(system, record, card))
     stages.update(network_breakdown_report(engine, stages, card))
     bf16_drive = {"timings": timings,
@@ -2363,6 +2990,31 @@ def main(argv=None):
         "last": system_int8.last_T_WC.cpu()}, card))
     del system_int8, eng_q
     torch.cuda.empty_cache()
+    # the same frames through the engine split over two entries of the card
+    # (--tp 2), threaded
+    launches_tp, system_tp, _, tp["drive"] = drive_frontend(
+        eng_tp, mcfg, cfg, frames[:N_FRAMES], card, "tensor-parallel drive")
+    del system_tp, eng_tp
+    torch.cuda.empty_cache()
+    # the same frames threaded with the backend on device 0 (its mirror
+    # arena beside the live one), in turns with the threaded drive without
+    # it (backend device, without, without, backend device)
+    bdev_runs = {"backend_device": [], "threaded": []}
+    for mode in ("backend_device", "threaded", "threaded", "backend_device"):
+        n_launch, system_b, _, t = drive_frontend(
+            engine, mcfg, cfg, frames[:N_FRAMES], card,
+            f"production drive, {mode}, run {len(bdev_runs[mode]) + 1}",
+            backend_device=0 if mode == "backend_device" else None)
+        if mode == "backend_device" and not bdev_runs[mode]:
+            launches_bdev = n_launch
+        bdev_runs[mode].append(t)
+        del system_b
+        torch.cuda.empty_cache()
+    multi["backend_device"] = compare_threaded_inline(
+        bdev_runs, card, "production drive", modes=("backend_device",
+                                                    "threaded"))
+    multi["backend_device"]["mirror_rows_copied"] = [
+        t["mirror_rows_copied"] for t in bdev_runs["backend_device"]]
 
     from mast3r_slam_torch.retrieval.database import RetrievalDatabase
 
@@ -2402,14 +3054,16 @@ def main(argv=None):
     ate["loop_retrieval"] = drive_oracle_loop(card)
     ate["threaded"] = drive_oracle_threaded(card)
     state.update(drive_oracle_state(card))
+    multi["backend_device"].update(drive_oracle_backend_device(card))
 
     # the main path's launches: the production drive's, the retrieval
     # drive's and the int8 drive's, each counted from 0 over its own run
     kinds = ("attention", "gn_accumulate", "gn_solve", "pack_rows")
     drives = {"production": launches, "retrieval": launches_retr,
-              "int8": launches_int8}
+              "int8": launches_int8, "tp": launches_tp,
+              "backend_device": launches_bdev}
     by_drive = {k: {d: n[k] for d, n in drives.items()} for k in kinds}
-    for d in ("retrieval", "int8"):
+    for d in ("retrieval", "int8", "tp", "backend_device"):
         if not all(drives[d][k] > 0
                    for k in ("attention", "gn_solve", "pack_rows")):
             raise SystemExit(f"a kernel of the main path was not launched "
@@ -2422,7 +3076,9 @@ def main(argv=None):
              replaces="mast3r_slam_tpu/ops/attention.py:28",
              launches=launches["attention"],
              launches_by_drive=by_drive["attention"], tensor_core_sass=tc_ops,
-             **attn["encoder"]),
+             launches_per_encode_tp=tp["tp_attention_launches_per_encode"],
+             launches_per_decode_tp=tp["tp_attention_launches_per_decode"],
+             tp_shapes=tp["attention_tp_shapes"], **attn["encoder"]),
         # the sums' arithmetic (accumulate_point) reaches the card through
         # two entries: its count is the launches of either on the main path
         dict(name="gn", route="cuda",
@@ -2451,6 +3107,8 @@ def main(argv=None):
     print(f"retrieval: {json.dumps(retrieval)}")
     print(f"int8: {json.dumps(int8)}")
     print(f"oracle ATE (m): {json.dumps(ate)}")
+    print(f"tensor parallel: {json.dumps(tp)}")
+    print(f"multi-GPU: {json.dumps(multi)}")
     print(f"state: {json.dumps(state)}")
     print(f"production drive, threaded, run 2, launches: "
           f"{json.dumps(launches_again)}")

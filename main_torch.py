@@ -13,7 +13,9 @@ truth.  The backend runs on a thread under ``single_thread: False``
 True`` (the eval configs).  ``--state-out`` saves the SLAM state after the
 last frame and ``--resume-state`` restores one before the first (with
 ``--start-frame``, a run in segments).  A run that ends lost (in RELOC)
-says so and exits 0, as ``main.py`` does.
+says so and exits 0, as ``main.py`` does.  ``--tp N`` splits the network
+over N devices (tensor parallel) and ``--backend-device I`` runs the
+backend on device I, as ``main.py`` runs them.
 
     python3 main_torch.py --dataset <clip> --config config/base.yaml --no-viz
 
@@ -33,8 +35,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 # flag -> the slice of the port that brings its module
 LATER_SLICES = {
-    "tp": "multi-GPU slice (tensor-parallel network)",
-    "backend_device": "multi-GPU slice (backend on a second card)",
     "viz_port": "viewer slice (live WebGL viewer)",
 }
 
@@ -126,9 +126,17 @@ def parse_args(argv=None):
     p.add_argument("--state-out", default=None,
                    help="write the SLAM state after the last frame (a run "
                         "in segments chains these with --start-frame)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree of the network: attention "
+                        "heads and MLP columns split over a 'model' mesh "
+                        "axis of this size (one reduction per attention and "
+                        "per MLP; parallel/mesh.py shard_params_tp); no "
+                        "effect with --oracle")
+    p.add_argument("--backend-device", type=int, default=None,
+                   help="run the backend (the keyframe rounds' decodes, "
+                        "matches and BA) on this device index, with a "
+                        "mirror of the keyframe arena there (pipeline.py)")
     # flags of main.py whose modules are later slices of the port
-    p.add_argument("--tp", type=int, default=None)
-    p.add_argument("--backend-device", type=int, default=None)
     p.add_argument("--viz-port", type=int, default=None)
     return p.parse_args(argv)
 
@@ -358,12 +366,24 @@ def main(argv=None):
         engine._encode_counter = max(int(args.start_frame), 0)
         K = seq.K if use_calib else None
     else:
+        mesh = None
+        if args.tp > 1:
+            from mast3r_slam_torch.device import local_devices
+            from mast3r_slam_torch.parallel.mesh import make_mesh
+
+            devs = local_devices(device)
+            if len(devs) >= args.tp:
+                mesh = make_mesh(n_edge=len(devs) // args.tp,
+                                 n_model=args.tp, devices=devs)
+            else:
+                print(f"--tp {args.tp} needs {args.tp} devices, have "
+                      f"{len(devs)}; running unsharded")
         engine = InferenceEngine(
             load_model(args), (h, w),
             downsample=int(config["dataset"].get("img_downsample", 1)),
             match_cfg=MatchingConfig.from_dict(config["matching"]),
             device=device, int8_encoder=args.int8_encoder,
-            int8_local_head=args.int8_local_head)
+            int8_local_head=args.int8_local_head, mesh=mesh)
     retrieval = None
     if args.oracle:
         if args.oracle_retrieval:
@@ -387,7 +407,8 @@ def main(argv=None):
                   "loop closure and relocalization proposals disabled")
     profiler = TimeProfiler(enabled=args.profile)
     system = SLAMSystem(config, engine, (h, w), K=K, retrieval=retrieval,
-                        device=device, profiler=profiler)
+                        device=device, profiler=profiler,
+                        backend_device=args.backend_device)
     if args.resume_state:
         system.load_state(args.resume_state)
         print(f"resumed from {args.resume_state}: {system.arena.n_size} "

@@ -53,6 +53,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 struct Strides {  // in elements
@@ -509,6 +511,12 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
+// Devices on which the bf16 kernel has opted in to its dynamic shared memory
+// (zero-initialised; a second thread's opt-in on the same device repeats an
+// idempotent call).
+constexpr int kMaxDevices = 64;
+static std::atomic<int> bf16_opted_in[kMaxDevices];
+
 // dtype: 0 = float32, 1 = bfloat16.  Only Dh = 64 is instantiated.  strides:
 // 12 element strides, (batch, head, token) of q, k, v, o.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
@@ -529,10 +537,21 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
         static_cast<const float*>(v), static_cast<float*>(o), H, nq, nk,
         st[0], st[1], st[2], st[3], scale);
   } else if (dtype == 1) {
-    // above 48 KB a kernel has to opt in to its dynamic shared memory
-    static cudaError_t opt_in = cudaFuncSetAttribute(
-        attn_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
-    if (opt_in != cudaSuccess) return (int)opt_in;
+    // above 48 KB a kernel has to opt in to its dynamic shared memory, and
+    // the opt-in holds for the current device only: it is made once on
+    // each device the kernel launches on (the caller makes the tensors'
+    // device current)
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!bf16_opted_in[dev].load(std::memory_order_acquire)) {
+      err = cudaFuncSetAttribute(
+          attn_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          TC_SMEM);
+      if (err != cudaSuccess) return (int)err;
+      bf16_opted_in[dev].store(1, std::memory_order_release);
+    }
     const dim3 grid((nq + TC_BM - 1) / TC_BM, B * H);
     attn_fwd_bf16<<<grid, TC_NT, TC_SMEM, s>>>(
         static_cast<const __nv_bfloat16*>(q),

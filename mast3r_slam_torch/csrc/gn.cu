@@ -531,16 +531,18 @@ extern "C" int gn_accumulate(const float* pts, int n, const float* scal,
 
 // The whole solve from T_init (8 f32 on the device).  scratch: room for
 // (2, scratch_rows, 27) f32; out: 11 f32 [T(8), ok, iterations run, last
-// cost].  The grid is every block the card can hold at once, at most one
-// thread per point and at most scratch_rows blocks: a cooperative launch
+// cost].  The grid is every block the card `device` (the one that holds the
+// buffers and runs `stream`, current at the call) can hold at once, at most
+// one thread per point and at most scratch_rows blocks: a cooperative launch
 // with a larger grid is refused, not clamped.
 extern "C" int gn_solve(const float* pts, int n, const float* T_init,
                         float huber_k, float rel_error, float delta_norm,
                         int max_iters, float* scratch, int scratch_rows,
-                        float* out, void* stream) {
+                        float* out, int device, void* stream) {
   if (n <= 0 || scratch_rows <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  int dev = -1, sms = 0, per_sm = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev != device) err = cudaErrorInvalidDevice;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)

@@ -278,3 +278,32 @@ def arena_update_poses(arena: KeyframeArena, T_WCs, idx) -> KeyframeArena:
     arena.T_WC[idx[rows].to(dev)] = T_WCs.index_select(0, rows.to(dev)) \
         .to(arena.T_WC.dtype)
     return arena
+
+
+# the per-keyframe fields of the arena (K is one matrix, n_size a host int)
+ARENA_ROW_FIELDS = ("frame_id", "uimg", "T_WC", "X", "C", "N", "N_updates",
+                    "feat", "pos")
+
+
+def arena_copy(arena: KeyframeArena, device) -> KeyframeArena:
+    """A copy of the whole arena on ``device``, with storage of its own also
+    on the arena's own device: the backend's mirror arena
+    (pipeline.py:181-184), which later in-place writes to the live arena
+    must not reach."""
+    return dataclasses.replace(arena, **{
+        name: getattr(arena, name).to(device, copy=True)
+        for name in ARENA_ROW_FIELDS + ("K",)})
+
+
+def arena_copy_rows(dst: KeyframeArena, src: KeyframeArena, rows) -> int:
+    """Copy the keyframe rows ``rows`` (host ints) of every per-keyframe
+    field from ``src`` into ``dst``, which may lie on another device
+    (``_mirror_set`` of pipeline.py:284-287).  Returns the count."""
+    rows = sorted(int(r) for r in rows)
+    if not rows:
+        return 0
+    idx = torch.tensor(rows, dtype=torch.int64)
+    for name in ARENA_ROW_FIELDS:
+        s, d = getattr(src, name), getattr(dst, name)
+        d[idx.to(d.device)] = s[idx.to(s.device)].to(d.device)
+    return len(rows)

@@ -21,8 +21,11 @@ Retrieval edges between keyframes whose q8 descriptor tables are stored
 tables (``ops/matching.py::match_desc_global``), and the pairs its gates
 reject are retried through the symmetric decode.
 
-Not in this slice: the backend on a second card and the sharded BA
-(``device``, ``params``, ``mesh``: the multi-GPU slice).
+Multi-device: with ``device`` / ``params`` the edge store lives on a
+backend device and the backend's decodes run through that device's copy of
+the engine; with ``mesh`` the BA solve is sharded over the mesh's ``edge``
+axis (``parallel/sharded_ba.py``: the edges, or in ``shard_mode`` "map"
+the keyframe pointmaps too).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import torch
 
 from .frame import KeyframeArena, arena_update_poses
 from .ops import ba
+from .parallel.sharded_ba import (sharded_gauss_newton,
+                                  sharded_gauss_newton_mapshard)
 from .ops import matching as matching_ops
 from .ops.ba import sqrt_rn
 from .ops.geometry import constrain_points_to_ray
@@ -65,7 +70,7 @@ def _write_edges(stores, slots, news):
     dst = torch.from_numpy(slots[keep]).to(dev)
     src = torch.from_numpy(keep).to(dev)
     for store, new in zip(stores, news):
-        store[dst] = new.index_select(0, src).to(store.dtype)
+        store[dst] = new.to(dev).index_select(0, src).to(store.dtype)
 
 
 def _frac(valid):
@@ -177,6 +182,26 @@ def _prep_and_solve(X_arena, C_arena, N_arena, T_arena,
                            K, residual_type, img_wh, cfg)
 
 
+def _prep_and_solve_sharded(X_arena, C_arena, N_arena, T_arena,
+                            idx_ii2jj, idx_jj2ii, vmj, vmi, Qj_arr, Qi_arr,
+                            uidx, ii2, jj2, edge_valid, K, mesh,
+                            shard_mode: str, E_bucket: int,
+                            residual_type: str, img_wh, cfg: ba.BAConfig,
+                            use_calib: bool):
+    """Prep + GN solve sharded over the mesh's ``edge`` axis
+    (global_opt.py:280): ``shard_mode`` "edge" splits the edges
+    (``sharded_gauss_newton``), "map" the keyframe pointmaps too
+    (``sharded_gauss_newton_mapshard``).  The poses come back on the mesh's
+    first entry's device."""
+    Twc, Xs, Cs, idx2, vm2, Q2 = _prep_system(
+        X_arena, C_arena, N_arena, T_arena, idx_ii2jj, idx_jj2ii, vmj, vmi,
+        Qj_arr, Qi_arr, uidx, K, E_bucket, img_wh, use_calib)
+    fn = sharded_gauss_newton if shard_mode == "edge" else \
+        sharded_gauss_newton_mapshard
+    return fn(mesh, Twc, Xs, Cs, ii2, jj2, idx2, vm2, Q2, edge_valid, K,
+              residual_type, img_wh, cfg, return_stats=True)
+
+
 def _prep_and_solve_cached(X_arena, T_arena, pre_Xi_f, pre_sqw_f, pre_ind_f,
                            pre_Xi_r, pre_sqw_r, pre_ind_r, uidx, ii2, jj2, K,
                            E_bucket: int, residual_type: str, img_wh,
@@ -236,14 +261,36 @@ class FactorGraph:
                  params=None, mesh=None, shard_mode: str = "edge",
                  store_device=None):
         """``store_device``: where the edge store lives (default
-        ``engine.device``; the arena's device in the pipeline).  ``device``,
-        ``params`` and ``mesh`` (JAX's second-card backend and sharded BA)
-        are the multi-GPU slice of the port."""
-        if device is not None or params is not None or mesh is not None:
-            raise NotImplementedError(
-                "FactorGraph device / params / mesh (backend on a second "
-                "card, sharded BA): multi-GPU slice")
+        ``engine.device``; the arena's device in the pipeline).
+
+        ``device`` / ``params`` (global_opt.py:315-339): the backend device
+        of the frontend / backend split; the edge store lives there, and the
+        symmetric and asymmetric decodes of ``add_factors`` run through
+        ``params``, that device's copy of the engine (the counterpart of
+        JAX's copy of the weights; ``engine`` itself when None).
+
+        ``mesh``: a ``parallel.mesh.Mesh`` with an ``edge`` axis; the BA
+        solve then runs sharded over it (``shard_mode`` "edge" or "map"),
+        without the pregather cache, and the store defaults to the mesh's
+        first entry's device.  Exclusive with ``device``."""
+        if mesh is not None and device is not None:
+            raise ValueError(
+                "FactorGraph: mesh-sharded BA and backend-device placement "
+                "are mutually exclusive (the sharded solve spans all the "
+                "mesh's devices; run it on the whole mesh instead)")
+        if shard_mode not in ("edge", "map"):
+            raise ValueError(f"shard_mode must be 'edge' or 'map', got "
+                             f"{shard_mode!r}")
         self.engine = engine
+        # the engine the backend's decodes and matches run through
+        self._eng = params if params is not None else engine
+        self.mesh = mesh
+        self.shard_mode = shard_mode
+        self._mesh_D = int(mesh.shape["edge"]) if mesh is not None else 1
+        if device is not None:
+            store_device = device
+        elif store_device is None and mesh is not None:
+            store_device = mesh.devices[0, 0]
         if store_device is None:
             store_device = getattr(engine, "device", None)
             if store_device is None:
@@ -295,8 +342,10 @@ class FactorGraph:
         # pointmaps do not change once a newer keyframe exists, so the
         # permuted-side gathers are kept per edge slot across rounds and
         # refreshed for edges that are new or whose endpoint changed
-        # (arena.N_updates)
-        self.cache_pre = bool(self.local_cfg.get("cache_pregather", True))
+        # (arena.N_updates); off under a mesh, whose solvers pregather their
+        # own shards (global_opt.py:403-405)
+        self.cache_pre = bool(self.local_cfg.get("cache_pregather", True)) \
+            and mesh is None
         if self.cache_pre:
             s = max(int(self.cfg.points_subsample), 1)
             n_sub = -(-hw // s)
@@ -418,10 +467,11 @@ class FactorGraph:
             dev = arena.feat.device
             sel_i = torch.tensor(ii, device=dev)
             sel_j = torch.tensor(jj, device=dev)
+            to = self._to_eng
             (idx_i2j, idx_j2i, valid_match_j, valid_match_i,
-             Qii, Qjj, Qji, Qij) = self.engine.match_symmetric(
-                arena.feat[sel_i], arena.pos[sel_i],
-                arena.feat[sel_j], arena.pos[sel_j])
+             Qii, Qjj, Qji, Qij) = self._eng.match_symmetric(
+                to(arena.feat[sel_i]), to(arena.pos[sel_i]),
+                to(arena.feat[sel_j]), to(arena.pos[sel_j]))
         if idx_i2j.shape[1] * 4 == Qii.shape[1]:
             # subgrid edge match: gate on the subgrid, store at full size
             h, w = arena.img_hw
@@ -481,18 +531,19 @@ class FactorGraph:
         d8f = reuse.get("desc8_frame")
         d8k = reuse.get("desc8_kf")
         if self.reuse_warp and d8f is not None \
-                and hasattr(self.engine, "match_arrays_warp"):
+                and hasattr(self._eng, "match_arrays_warp"):
             # d8k = keyframe i's descriptors (the tracker's view 2), d8f =
             # keyframe j's (view 1)
-            idx_i2j, vm_j = self.engine.match_arrays_warp(
+            idx_i2j, vm_j = self._eng.match_arrays_warp(
                 arena.X, arena.T_WC, i, j, d8k, d8f, arena.img_hw)
             # confidences of the same (j, i) decode, sides swapped
             Qii, Qji = reuse["Qij"], reuse["Qjj"]
         else:
+            to = self._to_eng
             (idx_i2j, vm_j, _Xff, _Cff, Qii, _Xkf, _Ckf, Qji) = \
-                self.engine.match_asymmetric(
-                    arena.feat[i][None], arena.pos[i][None],
-                    arena.feat[j][None], arena.pos[j][None])[:8]
+                self._eng.match_asymmetric(
+                    to(arena.feat[i][None]), to(arena.pos[i][None]),
+                    to(arena.feat[j][None]), to(arena.pos[j][None]))[:8]
         idx_j2i, vm_i = reuse["idx_j2i"], reuse["valid_i"]
         Qjj, Qij = reuse["Qjj"], reuse["Qij"]
         if idx_i2j.shape[1] * 4 == Qjj.shape[1]:
@@ -508,6 +559,10 @@ class FactorGraph:
         self._append([i], [j], [True],
                      (idx_i2j, idx_j2i, vm_j[..., 0], vm_i[..., 0], Qj, Qi))
         return True
+
+    def _to_eng(self, t):
+        """``t`` on the device of the engine the backend decodes with."""
+        return t.to(getattr(self._eng, "device", t.device))
 
     # -- incremental pregather cache -------------------------------------
 
@@ -577,8 +632,13 @@ class FactorGraph:
         P = len(unique)
         if P <= pin:
             return None
-        E_bucket = _next_bucket(n, 4)
-        P_pad = _next_bucket(P, 2)
+        # sharded: the 2 * E_bucket edge rows (and in map mode P_pad) must
+        # divide over the edge axis; power-of-two buckets with a raised
+        # floor do for any power-of-two axis (global_opt.py:791-797)
+        D = self._mesh_D
+        E_bucket = _next_bucket(n, max(4, D // 2))
+        P_pad = _next_bucket(P, 2 if D == 1 or self.shard_mode != "map"
+                             else D)
         remap = {int(k): c for c, k in enumerate(unique)}
         ii_c = np.array([remap[int(k)] for k in self.ii[:n]], np.int64)
         jj_c = np.array([remap[int(k)] for k in self.jj[:n]], np.int64)
@@ -599,7 +659,13 @@ class FactorGraph:
             return torch.from_numpy(a).to(dev)
 
         calib = residual_type == "calib"
-        if self.cache_pre:
+        if self._mesh_D > 1:
+            Twc_new, iters, delta, ok = _prep_and_solve_sharded(
+                arena.X, arena.C, arena.N, arena.T_WC, *self._stores(),
+                put(unique_pad), put(ii2), put(jj2), put(ev), self._K(),
+                self.mesh, self.shard_mode, E_bucket, residual_type, (w, h),
+                self.cfg, calib)
+        elif self.cache_pre:
             self._sync_cache(arena, unique, calib)
             Twc_new, iters, delta, ok = _prep_and_solve_cached(
                 arena.X, arena.T_WC, *self._pres(), put(unique_pad),
@@ -621,7 +687,8 @@ class FactorGraph:
         if res is None:
             return arena, None
         upd, Twc_new, stats = res
-        return arena_update_poses(arena, Twc_new, upd), stats
+        return arena_update_poses(arena, Twc_new.to(arena.T_WC.device),
+                                  upd), stats
 
     def solve_GN_rays(self, arena: KeyframeArena):
         """(global_opt.py:865)"""

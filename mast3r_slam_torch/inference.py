@@ -5,11 +5,14 @@ asymmetric two-view decode with both heads (the local-feature MLPs in int8
 on request), the mono (self-pair) decode, the asymmetric
 decode + dense match of the tracker, the backend's symmetric decode + match
 and decode-free pose-warped match of a factor-graph edge, and the
-host-side image resize.
+host-side image resize.  With a mesh the network runs tensor parallel over
+its ``model`` axis (``parallel.mesh.shard_params_tp``); ``replica`` gives
+the engine's copy on another device, which a backend device decodes with.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Tuple
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 from .device import resolve_device
 from .models import quant
 from .models.mast3r import MASt3R, cast_trunk_params_bf16, postprocess
+from .parallel.mesh import shard_params_tp
 from .ops import lie_sim3 as sim3
 from .ops import matching
 
@@ -30,11 +34,19 @@ class InferenceEngine:
                  downsample: int = 1,
                  match_cfg: matching.MatchingConfig | None = None,
                  device="cuda", int8_encoder: bool = False,
-                 int8_local_head: bool = False):
+                 int8_local_head: bool = False, mesh=None):
         """``int8_encoder`` runs the encoder through ``quant.encode_int8``
         and ``int8_local_head`` the catMLP local-feature MLPs through
         ``quant.local_features_int8`` (inference.py:89-110), both with
-        weights quantised here from the model as cast below."""
+        weights quantised here from the model as cast below.
+
+        ``mesh`` (inference.py:42-67): a ``parallel.mesh.Mesh`` whose
+        ``model`` axis is larger than 1 splits the trunk over that axis's
+        entries (the first row of the mesh), each entry running kernel A on
+        its ``H / n_model`` heads; the model's other weights stay on
+        ``device``, where the partial sums are reduced.  With
+        ``int8_encoder`` the whole weights are quantised and their codes
+        split (``quant.shard_qparams_tp``)."""
         if downsample != 1:
             raise NotImplementedError(
                 f"dataset.img_downsample={downsample} is not ported (the "
@@ -57,6 +69,16 @@ class InferenceEngine:
             if int8_encoder else None
         self.qlocal = quant.quantize_local_heads(self.model) \
             if int8_local_head else None
+        self.mesh = mesh
+        self.qparams_tp = None
+        if mesh is not None and mesh.shape["model"] > 1:
+            shard_params_tp(self.model, mesh)
+            if self.qparams is not None:
+                devs = mesh.axis_devices("model")
+                cfg = model.cfg
+                self.qparams_tp = (devs, quant.shard_qparams_tp(
+                    self.qparams, cfg.enc_num_heads,
+                    cfg.enc_embed_dim // cfg.enc_num_heads, devs))
         self.img_hw = tuple(img_hw)
         self.match_cfg = match_cfg or matching.MatchingConfig()
         p = model.cfg.patch_size
@@ -69,8 +91,28 @@ class InferenceEngine:
         (inference.py:161)."""
         img = img.to(self.device)
         if self.qparams is not None:
-            return quant.encode_int8(self.model, self.qparams, img)
+            return quant.encode_int8(self.model, self.qparams, img,
+                                     tp=self.qparams_tp)
         return self.model.encode(img)
+
+    def replica(self, device) -> "InferenceEngine":
+        """This engine's copy on ``device`` (JAX's params put on the
+        backend chip, pipeline.py:133-137): the same weights, casts and
+        quantised heads, unsharded; this engine itself on its own
+        device."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        twin = copy.copy(self)
+        twin.device = device
+        # the split pieces stay behind: the copy runs whole
+        memo = {id(m.tp): None for m in self.model.modules()
+                if getattr(m, "tp", None) is not None}
+        twin.model = copy.deepcopy(self.model, memo).to(device)
+        twin.mesh = twin.qparams_tp = None
+        twin.qparams = self.qparams and _tree_to(self.qparams, device)
+        twin.qlocal = self.qlocal and _tree_to(self.qlocal, device)
+        return twin
 
     @torch.no_grad()
     def decode_pair(self, feat1, pos1, feat2, pos2):
@@ -193,6 +235,13 @@ class InferenceEngine:
 
         return (idx[:E], idx[E:], valid[:E], valid[E:],
                 flat1(Q[0]), flat1(Q[2]), flat1(Q[1]), flat1(Q[3]))
+
+
+def _tree_to(tree, device):
+    """A dict of ``QuantDense`` (nested) with every tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return type(tree)(*(t.to(device) for t in tree))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ resize term and GELU rounds where the JAX program rounds (``_product``,
 bf16 heads give JAX's bits but for a few elements.  Public layouts stay
 NHWC; the convolutions run NCHW inside.  Every attention goes through
 ``ops.attention.flash_attention``.
+
+Tensor parallelism: after ``parallel.mesh.shard_params_tp`` the trunk's
+attentions and MLPs hold a ``tp`` split over the mesh's ``model`` axis and
+run as Megatron blocks (``_tp_sum``): each entry computes its heads (or its
+slice of the hidden layer) on its device, its ``proj`` / ``fc2`` product a
+partial sum; the partials are added in f32 in entry order on the input's
+device, rounded to the compute dtype once and the bias added after, as
+``_product`` adds it.  In f32 that is the unsplit function up to the order
+of the sums; in bf16 each partial is rounded once more.
 """
 
 from __future__ import annotations
@@ -145,16 +154,45 @@ def gelu(x):
     return (0.5 * x) * e
 
 
+def _tp_sum(parts, dense: Dense, device):
+    """The row-split product of ``dense``: the entries' partial products
+    ``parts`` (each rounded to the compute dtype) summed in f32 in entry
+    order on ``device``, then rounded and the bias added once, as
+    ``_product`` finishes the whole product."""
+    acc = parts[0].to(device, torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(device, torch.float32)
+    cd = dense.compute_dtype
+    if cd == torch.float32:
+        return acc + dense.bias.float()
+    y, b = acc.to(cd), dense.bias.to(cd)
+    return y.float() + b.float() if dense.f32_out else y + b
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (mast3r.py:96)."""
+    """fc1 -> exact GELU -> fc2 (mast3r.py:96).  With ``tp`` set
+    (``parallel.mesh.shard_params_tp``): ``fc1`` split by columns, ``fc2``
+    by rows, one reduction."""
 
     def __init__(self, i, hidden, out, dtype, f32_out=False):
         super().__init__()
         self.fc1 = Dense(i, hidden, dtype)
         self.fc2 = Dense(hidden, out, dtype, f32_out)
+        self.tp = None
 
     def forward(self, x):
+        if self.tp is not None:
+            return self._forward_tp(x)
         return self.fc2(gelu(self.fc1(x)))
+
+    def _forward_tp(self, x):
+        cd = self.fc1.compute_dtype
+        parts = []
+        for dev, p in zip(*self.tp):
+            h = gelu(_product(F.linear, x.to(dev), p["fc1_w"], p["fc1_b"],
+                              cd))
+            parts.append(_product(F.linear, h, p["fc2_w"], None, cd))
+        return _tp_sum(parts, self.fc2, x.device)
 
 
 def _attention(q, k, v, dtype):
@@ -169,26 +207,44 @@ def _attention(q, k, v, dtype):
 
 
 class SelfAttention(nn.Module):
-    """RoPE self-attention (mast3r.py:135)."""
+    """RoPE self-attention (mast3r.py:135).  With ``tp`` set: each entry
+    computes the q, k and v of its heads from its columns of the fused
+    ``qkv``, runs kernel A on them and multiplies by its rows of
+    ``proj``."""
 
     def __init__(self, dim, num_heads, rope_freq, dtype):
         super().__init__()
         self.num_heads, self.rope_freq, self.dtype = num_heads, rope_freq, dtype
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
+        self.tp = None
+
+    def _heads(self, qkv, xpos, B, N, Dh):
+        qkv = qkv.reshape(B, N, 3, -1, Dh)
+        q, k, v = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+        q = rope_2d(q, xpos, self.rope_freq)
+        k = rope_2d(k, xpos, self.rope_freq)
+        return _attention(q, k, v, self.dtype)
 
     def forward(self, x, xpos):
         B, N, C = x.shape
         Dh = C // self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, Dh)
-        q, k, v = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
-        q = rope_2d(q, xpos, self.rope_freq)
-        k = rope_2d(k, xpos, self.rope_freq)
-        return self.proj(_attention(q, k, v, self.dtype))
+        if self.tp is None:
+            return self.proj(self._heads(self.qkv(x), xpos, B, N, Dh))
+        parts = []
+        for dev, p in zip(*self.tp):
+            qkv = _product(F.linear, x.to(dev), p["qkv_w"], p["qkv_b"],
+                           self.dtype)
+            att = self._heads(qkv, xpos.to(dev), B, N, Dh)
+            parts.append(_product(F.linear, att, p["proj_w"], None,
+                                  self.dtype))
+        return _tp_sum(parts, self.proj, x.device)
 
 
 class CrossAttention(nn.Module):
-    """RoPE cross-attention (mast3r.py:156)."""
+    """RoPE cross-attention (mast3r.py:156).  With ``tp`` set: split by
+    heads, each entry's columns of ``projq`` / ``projk`` / ``projv`` and
+    rows of ``proj``."""
 
     def __init__(self, dim, num_heads, rope_freq, dtype):
         super().__init__()
@@ -197,18 +253,37 @@ class CrossAttention(nn.Module):
         self.projk = Dense(dim, dim, dtype)
         self.projv = Dense(dim, dim, dtype)
         self.proj = Dense(dim, dim, dtype)
+        self.tp = None
 
     def forward(self, query, key, value, qpos, kpos):
-        B, _, C = query.shape
-        Dh = C // self.num_heads
+        if self.tp is None:
+            lins = [(m.weight, m.bias)
+                    for m in (self.projq, self.projk, self.projv)]
+            return self.proj(self._attend(query, key, value, qpos, kpos,
+                                          lins))
+        parts = []
+        for dev, p in zip(*self.tp):
+            lins = [(p[n + "_w"], p[n + "_b"])
+                    for n in ("projq", "projk", "projv")]
+            att = self._attend(*(t.to(dev) for t in (query, key, value, qpos,
+                                                     kpos)), lins)
+            parts.append(_product(F.linear, att, p["proj_w"], None,
+                                  self.dtype))
+        return _tp_sum(parts, self.proj, query.device)
 
-        def heads(t, lin):
-            return lin(t).reshape(B, -1, self.num_heads, Dh).transpose(1, 2)
+    def _attend(self, query, key, value, qpos, kpos, lins):
+        """Attention of the heads whose (weight, bias) of projq, projk and
+        projv are ``lins``; (B, Nq, heads * Dh)."""
+        Dh = query.shape[-1] // self.num_heads
 
-        q = rope_2d(heads(query, self.projq), qpos, self.rope_freq)
-        k = rope_2d(heads(key, self.projk), kpos, self.rope_freq)
-        v = heads(value, self.projv)
-        return self.proj(_attention(q, k, v, self.dtype))
+        def heads(t, wb):
+            return _product(F.linear, t, *wb, self.dtype).reshape(
+                t.shape[0], t.shape[1], -1, Dh).transpose(1, 2)
+
+        wq, wk, wv = lins
+        q = rope_2d(heads(query, wq), qpos, self.rope_freq)
+        k = rope_2d(heads(key, wk), kpos, self.rope_freq)
+        return _attention(q, k, heads(value, wv), self.dtype)
 
 
 class EncoderBlock(nn.Module):

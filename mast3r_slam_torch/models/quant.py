@@ -11,6 +11,15 @@ and the attention (kernel A, ``ops.attention.flash_attention``, in bf16)
 stay in floating point.  The patch embed computes in bf16 whatever the
 trunk dtype is, so the residual stream is bf16 through the whole encoder.
 
+Tensor parallel (``InferenceEngine(mesh=, int8_encoder=True)``): the whole
+weights are quantised, then their codes split as the float weights are
+(``shard_qparams_tp``).  A column-split product quantises the whole token on
+each entry, so its columns are the unsplit product's; a row-split product
+takes the token's amax over all entries (a max, exact), quantises each
+entry's slice with that scale, adds the entries' int32 accumulators (exact)
+and rescales once (``_int8_matmul_rows``).  Codes and outputs are the
+unsplit int8 encoder's, bit for bit.
+
 The product is ``torch._int_mm``: JAX computes it with ``dot_general``
 outside any Pallas kernel (quant.py:77-81), so it is a library call here as
 the trunk's other products are.  On the card it runs cuBLASLt's int8 GEMM,
@@ -116,6 +125,63 @@ def _int8_matmul(x, qd: QuantDense):
     return acc.float() * a_scale * qd.scale + qd.bias
 
 
+def _int8_matmul_rows(parts, qds, device):
+    """``_int8_matmul`` of the concatenation of ``parts`` (each entry's
+    slice of the input's last dim, on its device) with the row-split
+    weights ``qds`` (each entry's input columns; the whole scale and
+    bias), on ``device``: the same codes, accumulators and rescale as the
+    unsplit product."""
+    amax = None
+    for p in parts:
+        a = p.float().abs().amax(dim=-1, keepdim=True).to(device)
+        amax = a if amax is None else torch.maximum(amax, a)
+    a_scale = torch.clamp(amax, min=1e-12) * (1.0 / 127.0)
+    acc = None
+    for p, qd in zip(parts, qds):
+        codes = torch.clamp(torch.round(p.float() / a_scale.to(p.device)),
+                            -127, 127).to(torch.int8)
+        part = int_mm(codes.reshape(-1, p.shape[-1]), qd.w_int8.t())
+        acc = part.to(device) if acc is None else acc + part.to(device)
+    acc = acc.reshape(*parts[0].shape[:-1], acc.shape[-1])
+    return acc.float() * a_scale * qds[0].scale.to(device) + \
+        qds[0].bias.to(device)
+
+
+def shard_qparams_tp(qparams: dict, n_heads: int, head_dim: int,
+                     devices) -> dict:
+    """The encoder's ``QuantDense`` codes split over ``devices`` as
+    ``parallel.mesh.shard_params_tp`` splits the float weights: per block,
+    a list (one per entry) for each of qkv and fc1 (output rows, with
+    their scales and biases) and proj and fc2 (input columns, the whole
+    scale and bias)."""
+    from ..parallel.mesh import _head_rows
+
+    n = len(devices)
+
+    def rows(qd, idx, dev):
+        return QuantDense(qd.w_int8[idx].contiguous().to(dev),
+                          qd.scale[idx].to(dev), qd.bias[idx].to(dev))
+
+    def cols(qd, idx, dev):
+        return QuantDense(qd.w_int8[:, idx].contiguous().to(dev),
+                          qd.scale.to(dev), qd.bias.to(dev))
+
+    out = {}
+    for name, q8 in qparams.items():
+        k = q8["fc1"].w_int8.shape[0] // n
+        out[name] = {
+            "qkv": [rows(q8["qkv"], _head_rows(n_heads, head_dim, n, e, 3), d)
+                    for e, d in enumerate(devices)],
+            "proj": [cols(q8["proj"], _head_rows(n_heads, head_dim, n, e), d)
+                     for e, d in enumerate(devices)],
+            "fc1": [rows(q8["fc1"], torch.arange(e * k, (e + 1) * k), d)
+                    for e, d in enumerate(devices)],
+            "fc2": [cols(q8["fc2"], torch.arange(e * k, (e + 1) * k), d)
+                    for e, d in enumerate(devices)],
+        }
+    return out
+
+
 def _layernorm(x, scale, bias):
     """quant.py:86: the two-pass variance, eps 1e-6, in f32 (not the
     model's ``F.layer_norm``)."""
@@ -126,27 +192,43 @@ def _layernorm(x, scale, bias):
 
 
 @torch.no_grad()
-def encode_int8(model: MASt3R, qparams: dict, img):
+def encode_int8(model: MASt3R, qparams: dict, img, tp=None):
     """The int8 encoder (quant.py:94): img (B, H, W, 3) -> (feat (B, N, C)
     f32, pos (B, N, 2)), ``model``'s encoder with its blocks' Linears
-    replaced by ``qparams`` (``quantize_encoder_params``)."""
+    replaced by ``qparams`` (``quantize_encoder_params``).  ``tp``:
+    (devices, ``shard_qparams_tp``'s split) runs every block tensor
+    parallel over those devices."""
     cfg: MASt3RConfig = model.cfg
     x, pos = model.patch_embed(img, torch.bfloat16)
     B, N, D = x.shape
     n_heads = cfg.enc_num_heads
     Dh = D // n_heads
-    for i, blk in enumerate(model.enc_blocks):
-        q8 = qparams[f"enc_block_{i}"]
-        h = _layernorm(x, blk.norm1.weight, blk.norm1.bias)
-        qkv = _int8_matmul(h, q8["qkv"]).reshape(B, N, 3, n_heads, Dh)
+
+    def heads(qkv, pos):
+        qkv = qkv.reshape(B, N, 3, -1, Dh)
         q, k, v = [qkv[:, :, j].transpose(1, 2) for j in range(3)]
         q = rope_2d(q, pos, cfg.rope_freq)
         k = rope_2d(k, pos, cfg.rope_freq)
-        att = _attention(q, k, v, torch.bfloat16)
-        x = x + _int8_matmul(att, q8["proj"]).to(x.dtype)
+        return _attention(q, k, v, torch.bfloat16)
+
+    for i, blk in enumerate(model.enc_blocks):
+        q8 = qparams[f"enc_block_{i}"]
+        h = _layernorm(x, blk.norm1.weight, blk.norm1.bias)
+        if tp is None:
+            att = heads(_int8_matmul(h, q8["qkv"]), pos)
+            x = x + _int8_matmul(att, q8["proj"]).to(x.dtype)
+            h = _layernorm(x, blk.norm2.weight, blk.norm2.bias)
+            h = gelu(_int8_matmul(h, q8["fc1"]))
+            x = x + _int8_matmul(h, q8["fc2"]).to(x.dtype)
+            continue
+        devs, s8 = tp[0], tp[1][f"enc_block_{i}"]
+        att = [heads(_int8_matmul(h.to(d), s8["qkv"][e]), pos.to(d))
+               for e, d in enumerate(devs)]
+        x = x + _int8_matmul_rows(att, s8["proj"], x.device).to(x.dtype)
         h = _layernorm(x, blk.norm2.weight, blk.norm2.bias)
-        h = gelu(_int8_matmul(h, q8["fc1"]))
-        x = x + _int8_matmul(h, q8["fc2"]).to(x.dtype)
+        hs = [gelu(_int8_matmul(h.to(d), s8["fc1"][e]))
+              for e, d in enumerate(devs)]
+        x = x + _int8_matmul_rows(hs, s8["fc2"], x.device).to(x.dtype)
     return _layernorm(x, model.enc_norm.weight, model.enc_norm.bias), pos
 
 

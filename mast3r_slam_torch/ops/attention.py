@@ -69,7 +69,8 @@ def _check_kernel_inputs(q, k, v):
 
 def flash_attention(q, k, v):
     """Exact fused attention (attention.py:47).  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/attention.cu`` or raise.  q, k and v
+    version; CUDA tensors launch ``csrc/attention.cu`` on their own device
+    (made current for the launch), or raise.  q, k and v
     may be strided views with a contiguous last dimension; the kernel's
     output is a (B, H, Nq, Dh) view of (B, Nq, H, Dh) memory."""
     devs = {q.device, k.device, v.device}
@@ -86,10 +87,11 @@ def flash_attention(q, k, v):
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(d) for t in (q, k, v, out) for d in range(3)))
-    err = _lib().attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, Nq, Nk, Dh, _DTYPES[q.dtype], strides, 1.0 / (Dh ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = _lib().attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, Nq, Nk, Dh, _DTYPES[q.dtype], strides, 1.0 / (Dh ** 0.5),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attention_fwd")
     _build.count_launch(flash_attention)
     return out

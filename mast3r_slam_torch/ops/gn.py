@@ -150,7 +150,7 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -186,10 +186,11 @@ def gn_sums(pts, scal, huber_k):
     G = num_blocks(n)
     partial = torch.empty((G, N_ACC), dtype=torch.float32, device=pts.device)
     out = torch.empty((N_ACC,), dtype=torch.float32, device=pts.device)
-    err = _lib().gn_accumulate(
-        pts.data_ptr(), n, scal.data_ptr(), float(huber_k),
-        partial.data_ptr(), G, out.data_ptr(),
-        torch.cuda.current_stream(pts.device).cuda_stream)
+    with torch.cuda.device(pts.device):
+        err = _lib().gn_accumulate(
+            pts.data_ptr(), n, scal.data_ptr(), float(huber_k),
+            partial.data_ptr(), G, out.data_ptr(),
+            torch.cuda.current_stream(pts.device).cuda_stream)
     _build.check(err, "gn_accumulate")
     _build.count_launch(gn_sums)
     return out
@@ -269,11 +270,14 @@ def gn_solve_launch(pts, T_init, cfg):
     scratch = torch.empty((2, _MAX_BLOCKS, N_ACC), dtype=torch.float32,
                           device=pts.device)
     out = torch.empty((_SOLVE_OUT,), dtype=torch.float32, device=pts.device)
-    err = _lib().gn_solve(
-        pts.data_ptr(), pts.shape[1], T0.data_ptr(), float(cfg.huber_k),
-        float(cfg.rel_error), float(cfg.delta_norm), int(cfg.max_iters),
-        scratch.data_ptr(), _MAX_BLOCKS, out.data_ptr(),
-        torch.cuda.current_stream(pts.device).cuda_stream)
+    dev = pts.device
+    with torch.cuda.device(dev):
+        err = _lib().gn_solve(
+            pts.data_ptr(), pts.shape[1], T0.data_ptr(), float(cfg.huber_k),
+            float(cfg.rel_error), float(cfg.delta_norm), int(cfg.max_iters),
+            scratch.data_ptr(), _MAX_BLOCKS, out.data_ptr(),
+            torch.cuda.current_device(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gn_solve")
     _build.count_launch(gn_solve)
     return out

@@ -17,8 +17,14 @@ the queue and re-raise the thread's first error.  The two threads share
 the arena under ``_lock``: the frontend writes it in place, and a round
 reads an ``arena_snapshot`` taken under the lock.  Both threads launch on
 the stream that was current when the system was built, so the card runs
-their work in the order it was queued.  The backend on a second card is a
-later slice of the port.
+their work in the order it was queued.
+
+Multi-device (pipeline.py:65-170): ``backend_device`` puts the backend's
+device work (the edge store, its decodes and matches, the BA) on a device
+of its own, with a mirror of the arena there that takes, each round, only
+the rows written since the last one; only the optimised poses come back.
+``local_opt.sharded_ba`` ("edge" or "map") shards the BA over every
+device instead.  Devices are counted by ``device.local_devices``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import types
 import numpy as np
 import torch
 
+from . import device as _device
 from .device import resolve_device
 from .frame import (
     FilteringMode,
@@ -39,6 +46,8 @@ from .frame import (
     KeyframeArena,
     Mode,
     arena_append,
+    arena_copy,
+    arena_copy_rows,
     arena_get,
     arena_grow,
     arena_pop_last,
@@ -49,6 +58,7 @@ from .frame import (
     update_pointmap,
 )
 from .global_opt import FactorGraph
+from .parallel.mesh import make_mesh
 from .inference import IMGNORM_MEAN, IMGNORM_STD, resize_img
 from .ops import lie_sim3 as sim3
 from .tracker import FrameTracker, TrackerConfig
@@ -69,13 +79,23 @@ class SLAMSystem:
 
     def __init__(self, cfg: dict, engine, img_hw, K=None, retrieval=None,
                  buffer: int | None = None, device="cuda",
-                 profiler: TimeProfiler | None = None):
+                 profiler: TimeProfiler | None = None,
+                 backend_device: int | None = None):
         """``engine`` is an ``InferenceEngine`` or any object with its
         interface (the oracle harness of ``testing``).  ``K`` (3, 3) selects
         the calibrated mode, as in JAX; ``cfg["use_calib"]`` must agree.
         ``retrieval`` proposes loop-closure and relocalization candidates
         (``NullRetrieval`` when None).  ``profiler`` times the sections
-        when it is enabled."""
+        when it is enabled.
+
+        ``backend_device`` (or the cfg key ``backend_device``): the index,
+        among ``local_devices`` of this system's device kind, of the device
+        that runs the backend (pipeline.py:65-78): the edge store, the
+        decodes of ``add_factors`` (through the engine's ``replica`` there)
+        and the BA, on a mirror of the arena kept there row by row.  0 (the
+        frontend's device) is valid and builds the mirror beside the live
+        arena; an index past the devices prints one line and runs on one
+        device.  It takes precedence over ``local_opt.sharded_ba``."""
         self.device = resolve_device(device)
         if engine.device != self.device:
             raise ValueError(f"engine runs on {engine.device}, the system "
@@ -113,12 +133,45 @@ class SLAMSystem:
                     engine.match_cfg.edge_query_subsample != 1:
                 engine.match_cfg = engine.match_cfg._replace(
                     edge_query_subsample=1)
-        if cfg["local_opt"].get("sharded_ba"):
-            raise NotImplementedError(
-                "local_opt.sharded_ba (BA sharded over cards): multi-GPU "
-                "slice")
-        self.graph = FactorGraph(engine, h * w, cfg, K=self.K,
-                                 store_device=self.device)
+        if backend_device is None:
+            backend_device = cfg.get("backend_device", None)
+        # local_opt.sharded_ba: null | edge | map, the BA sharded over every
+        # device (pipeline.py:121-168)
+        shard_mode = cfg["local_opt"].get("sharded_ba") or None
+        devs = _device.local_devices(self.device.type)
+        self._bdev = None
+        if backend_device is not None:
+            if int(backend_device) < len(devs):
+                self._bdev = devs[int(backend_device)]
+            else:
+                print(f"backend_device={backend_device} unavailable "
+                      f"({len(devs)} devices); running single-device")
+        if self._bdev is not None:
+            if shard_mode:
+                print("backend_device takes precedence over "
+                      "local_opt.sharded_ba (mutually exclusive)")
+            replica = getattr(engine, "replica", None)
+            self._bengine = replica(self._bdev) if replica else engine
+            self.graph = FactorGraph(engine, h * w, cfg, K=self.K,
+                                     device=self._bdev,
+                                     params=self._bengine)
+            # the backend's mirror of the arena and the rows written since
+            # the last round (appended, fused into, or popped)
+            self._marena = arena_copy(self.arena, self._bdev)
+            self._dirty: set = set()
+            self.mirror_rows_copied = 0
+        else:
+            mesh = None
+            if shard_mode:
+                n_edge = 1 << (len(devs).bit_length() - 1)  # pow2 <= n
+                if n_edge > 1:
+                    mesh = make_mesh(n_edge=n_edge, devices=devs)
+                else:
+                    print("local_opt.sharded_ba requested but only one "
+                          "device is available; running single-device")
+            self.graph = FactorGraph(engine, h * w, cfg, K=self.K, mesh=mesh,
+                                     shard_mode=shard_mode or "edge",
+                                     store_device=self.device)
         self.retrieval = retrieval or NullRetrieval()
         self.mode = Mode.INIT
         # the tracker's frame -> keyframe match as one direction of the
@@ -153,9 +206,15 @@ class SLAMSystem:
             # card runs both threads' work in the order it was queued, and
             # the caching allocator cannot hand a block one thread freed to
             # the other while queued kernels still read it; it runs
-            # PyTorch's CPU ops on as many threads as this one
+            # PyTorch's CPU ops on as many threads as this one.  A backend
+            # on another card launches there on this thread's current
+            # stream of that card, which also orders the copies this thread
+            # makes to it (the reused match, the desc tables)
+            cuda = self.device.type == "cuda"
             self._stream = torch.cuda.current_stream(self.device) \
-                if self.device.type == "cuda" else None
+                if cuda else None
+            self._bstream = torch.cuda.current_stream(self._bdev) \
+                if cuda and self._bdev is not None else self._stream
             self._num_threads = torch.get_num_threads()
             self._backend_thread = threading.Thread(
                 target=self._backend_loop, name="slam-backend", daemon=True)
@@ -168,8 +227,11 @@ class SLAMSystem:
 
     def _snapshot(self) -> KeyframeArena:
         """The arena as a backend round reads it (pipeline.py:605): the
-        live arena when rounds run inline, else an ``arena_snapshot`` taken
-        under the lock, one consistent state of the frontend's writes."""
+        backend device's mirror, synced, when there is one; else the live
+        arena when rounds run inline, or an ``arena_snapshot`` taken under
+        the lock, one consistent state of the frontend's writes."""
+        if self._bdev is not None:
+            return self._sync_mirror()
         if self.single_thread:
             return self.arena
         with self._lock:
@@ -182,11 +244,38 @@ class SLAMSystem:
             if self.arena.n_size >= self.arena.buffer:
                 self.arena = arena_grow(self.arena, 2 * self.arena.buffer)
             arena_append(self.arena, frame)
+            if self._bdev is not None:
+                self._dirty.add(self.arena.n_size - 1)
 
     def _arena_set_last(self, kf: Frame):
         """Write the fused last keyframe back (pipeline.py:262)."""
         with self._lock:
             arena_set(self.arena, self.arena.n_size - 1, kf)
+            if self._bdev is not None:
+                self._dirty.add(self.arena.n_size - 1)
+
+    def _sync_mirror(self) -> KeyframeArena:
+        """Bring the backend device's mirror up to the live arena
+        (pipeline.py:270-297): the rows written since the last sync, the
+        pose table and the keyframe count; the whole arena again after an
+        ``arena_grow``.  The copies are made under ``_lock``, so that no
+        frontend write lands between them, and, on the backend thread, on
+        the frontend's stream of its card (the thread's current stream
+        there), so that a row is read after the frontend's queued writes to
+        it.  Rows below the last change only in their pose once a newer
+        keyframe exists, so a steady round copies one or two rows."""
+        with self._lock:
+            arena = self.arena
+            if self._marena.buffer != arena.buffer:
+                self._marena = arena_copy(arena, self._bdev)
+                self.mirror_rows_copied += arena.n_size
+            else:
+                self.mirror_rows_copied += arena_copy_rows(
+                    self._marena, arena, self._dirty)
+            self._dirty.clear()
+            self._marena.T_WC.copy_(arena.T_WC)
+            self._marena.n_size = arena.n_size
+        return self._marena
 
     def prepare_image(self, img: np.ndarray):
         """Resize + ImgNorm on the host (pipeline.py:303).  Returns
@@ -283,6 +372,11 @@ class SLAMSystem:
                         reuse[4] is not None:
                     self.graph.store_desc(n - 1, reuse[4], reuse[2], h, w)
                 if self._reuse_matches and n >= 2:
+                    if self._bdev is not None:
+                        # the match crosses to the backend device
+                        # (pipeline.py:413-417)
+                        reuse = tuple(None if t is None else
+                                      t.to(self._bdev) for t in reuse)
                     idx_f2k, vm, Qff, Qkf, d8f, d8k = reuse
                     # the tracker's direction is the j -> i direction of
                     # the edge (i = n-2, j = n-1): Qff is the new
@@ -333,8 +427,13 @@ class SLAMSystem:
         torch.set_num_threads(self._num_threads)
         with contextlib.ExitStack() as ctx:
             if self._stream is not None:
-                ctx.enter_context(torch.cuda.device(self.device))
+                # the frontend's stream current on its card, the backend's
+                # on the backend card (the same one on one card), the
+                # backend card current
                 ctx.enter_context(torch.cuda.stream(self._stream))
+                ctx.enter_context(torch.cuda.stream(self._bstream))
+                ctx.enter_context(torch.cuda.device(
+                    self.device if self._bdev is None else self._bdev))
             while not self._terminate:
                 try:
                     idx = self.tasks.get(timeout=0.01)
@@ -415,6 +514,8 @@ class SLAMSystem:
             if res is None:
                 return
             upd, Twc_new, stats = res
+            # only the optimised poses cross devices (8 floats a keyframe)
+            Twc_new = Twc_new.to(self.device)
             with self._lock:
                 arena_update_poses(self.arena, Twc_new, upd)
         self.stats["ba_rounds"] += 1
@@ -453,8 +554,10 @@ class SLAMSystem:
         with self._lock:
             arena_pop_last(self.arena)
             # the next keyframe reuses this slot: a stored table would be
-            # stale
+            # stale, and so would the mirror's row
             self.graph.desc_store.pop(self.arena.n_size, None)
+            if self._bdev is not None:
+                self._dirty.discard(self.arena.n_size)
         return False
 
     # ------------------------------------------------------------------
@@ -565,6 +668,10 @@ class SLAMSystem:
             if g._pre_fresh.shape[0] != g.max_edges:
                 g._pre_fresh = np.zeros((g.max_edges,), bool)
             g.invalidate_cache()
+        if self._bdev is not None:
+            # the mirror is stale: every row again at the next round
+            with self._lock:
+                self._dirty = set(range(arena.n_size))
         keys = ([str(k) for k in d["stats_keys"]] if "stats_keys" in d
                 else ["ba_rounds", "keyframes", "reloc", "skipped",
                       "tracked"])

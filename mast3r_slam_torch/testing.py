@@ -13,12 +13,14 @@ drain of the threaded backend that cannot hang (``drain_within``).
 
 from __future__ import annotations
 
+import copy
 import pathlib
 import time
 
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .ops import gn
 from .ops import lie_sim3 as sim3
 from .ops.geometry import get_pixel_coords
@@ -370,8 +372,6 @@ class OracleEngine:
                  match_noise_px: int = 0, seed: int = 0,
                  blackout_frames=(), export_desc: bool = False,
                  device="cuda"):
-        from .device import resolve_device
-
         self.device = resolve_device(device)
         self.seq = seq
         self.h, self.w = seq.h, seq.w
@@ -393,6 +393,19 @@ class OracleEngine:
 
     def _t(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def replica(self, device) -> "OracleEngine":
+        """This oracle with its outputs on ``device`` (the backend device's
+        engine, ``pipeline.SLAMSystem(backend_device=)``); it shares the
+        clip, the frame counter's meaning and the noise stream, and is this
+        oracle itself on its own device."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        twin = copy.copy(self)
+        twin.device = device
+        twin._desc_cache = {}
+        return twin
 
     def view_signature(self, i):
         """Content-based coarse view descriptor: subsampled world points."""

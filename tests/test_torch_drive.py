@@ -521,9 +521,8 @@ def test_main_torch_says_the_backend_runs_inline(clip, tmp_path,
     assert "ba_rounds " in out and "ba_rounds 0 " not in out
 
 
-@pytest.mark.parametrize("flag", [
-    ["--tp", "2"], ["--backend-device", "0"], ["--viz-port", "8089"], []],
-    ids=lambda f: f[0] if f else "without --no-viz")
+@pytest.mark.parametrize("flag", [["--viz-port", "8089"], []],
+                         ids=lambda f: f[0] if f else "without --no-viz")
 def test_main_torch_refuses_later_slices(flag):
     """A flag whose module is a later slice exits with one line naming the
     slice; it does not run something else."""
@@ -532,6 +531,39 @@ def test_main_torch_refuses_later_slices(flag):
         main_torch.main(argv)
     msg = str(e.value.code)
     assert "not ported yet" in msg and "slice" in msg and "\n" not in msg
+
+
+@pytest.mark.parametrize("case", ["tp", "tp-unavailable", "backend-device"])
+def test_main_torch_multi_gpu_flags(clip, tmp_path, monkeypatch, capsys,
+                                    case):
+    """``--tp`` and ``--backend-device`` run on ``--cpu`` (they replace the
+    refusal cases of ``test_main_torch_refuses_later_slices``), with the
+    device enumerator patched to two CPU entries: ``--tp 2`` builds the
+    tensor-parallel engine over a (1, 2) mesh; ``--tp 4`` prints
+    ``main.py``'s line and runs unsharded; ``--backend-device 0`` runs the
+    backend on a mirror of the arena."""
+    from mast3r_slam_torch import device as tdevice
+
+    _, _, d = clip
+    monkeypatch.setattr(tdevice, "local_devices",
+                        lambda kind="cuda": [torch.device("cpu")] * 2)
+    argv = {"tp": ["--tiny-model", "--tp", "2"],
+            "tp-unavailable": ["--tiny-model", "--tp", "4"],
+            "backend-device": ["--oracle", "--backend-device", "0"]}[case]
+    rc, system = _cli_net(d, tmp_path, monkeypatch, argv)
+    out = capsys.readouterr().out
+    assert rc == 0 and "done: 3 frames" in out
+    if case == "tp":
+        assert system.engine.mesh.shape == {"edge": 1, "model": 2}
+        assert len(system.engine.model.enc_blocks[0].attn.tp.parts) == 2
+    elif case == "tp-unavailable":
+        assert "--tp 4 needs 4 devices, have 2; running unsharded" in out
+        assert system.engine.mesh is None
+    else:
+        assert system._bdev == torch.device("cpu")
+        assert system.mirror_rows_copied >= 1
+        assert system._marena.X is not system.arena.X
+        assert system.graph.idx_ii2jj.device == system._bdev
 
 
 def _cli_net(d, tmp_path, monkeypatch, argv, entry=main_torch.main):

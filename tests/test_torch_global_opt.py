@@ -470,16 +470,26 @@ def test_edge_query_subsample_ba_bitwise():
 
 
 def test_slices_of_other_prs_raise():
-    """The second-card backend and sharded BA raise NotImplementedError
-    naming their slice.  The desc_global edge matcher (reached when every
+    """A mesh with a backend device raises ``ValueError``, as in JAX
+    (global_opt.py:328-332); ``device`` and ``mesh`` (the multi-GPU slice,
+    ported) build a graph whose store is on that device, the mesh's without
+    the pregather cache.  The desc_global edge matcher (reached when every
     endpoint has a stored table) is ported: all-zero tables fail its gates
     and the pair is retried through the symmetric path, which counts one
     desc_global batch and one fallback."""
+    from mast3r_slam_torch.parallel.mesh import make_mesh
+
     cfg = load_config("config/base.yaml")
     eng = IdentityEngine(torch)
-    for kw in ({"device": 1}, {"params": {}}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-            go.FactorGraph(eng, HW, cfg, store_device="cpu", **kw)
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        go.FactorGraph(eng, HW, cfg, device="cpu", mesh=mesh)
+    gd = go.FactorGraph(eng, HW, cfg, device="cpu", params=eng)
+    assert gd.dev == gd.idx_ii2jj.device == torch.device("cpu")
+    assert gd._eng is eng and gd.cache_pre
+    gm = go.FactorGraph(eng, HW, cfg, mesh=mesh, shard_mode="map")
+    assert gm.idx_ii2jj.device == mesh.devices[0, 0]
+    assert gm._mesh_D == 2 and not gm.cache_pre
     g = go.FactorGraph(eng, HW, cfg, store_device="cpu")
     assert g.retrieval_edge_mode == "desc_global"
     (_, ta), _ = _identity_arenas()

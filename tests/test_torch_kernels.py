@@ -285,3 +285,45 @@ def test_pack_kernel_refuses_a_strided_table(cuda):
     flat = torch.zeros(1, 24, 64, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         tpack.pack_rows(flat.transpose(1, 2), (0, 1))
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards: launches on a card that is not "
+                    "the current one")
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_card(two_cards):
+    """Each wrapper with ``cuda:1`` current and its tensors on ``cuda:0``:
+    the kernels must launch on the tensors' card (the wrapper makes it
+    current; kernel A opts in to its shared memory there, ``gn_solve``
+    sizes its grid for it) and agree with their plain versions as above."""
+    dev0, dev1 = two_cards
+    rng = np.random.default_rng(0)
+    qkv = [torch.from_numpy(rng.standard_normal((1, 12, 768, 64))
+                            .astype(np.float32)).to(dev0, torch.bfloat16)
+           for _ in range(3)]
+    pre, T = testing.gn_problem(196608, 196608, dev0)
+    cfg = TrackerConfig()
+    flat = torch.from_numpy(rng.integers(-127, 128, (1, 4096, 24))).to(
+        dev0, torch.int8)
+    with torch.cuda.device(dev1):
+        out = tattn.flash_attention(*qkv)
+        sums = tgn.gn_sums(pre.pts, tgn.rot_scalars(T), 1.345)
+        T1, ok1, it1 = tgn.gn_solve(pre, T, cfg)
+        packed = tpack.pack_rows(flat, (0, 1, 64, 65), 0, 4096)
+    torch.cuda.synchronize(dev0)
+    assert out.device == sums.device == packed.device == dev0
+    ref = tattn.attention_plain(*qkv)
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+    err, tol = testing.gn_sums_check(
+        sums, tgn.gn_terms_plain(pre.pts, tgn.rot_scalars(T), 1.345))
+    assert bool((err <= tol).all())
+    Tp, okp, itp = tgn.gn_solve_plain(pre, T, cfg)
+    assert ok1 == okp and it1 == itp
+    assert float((T1 - Tp).abs().max()) <= 1e-5
+    assert _same_bits(packed, tpack.pack_rows_plain(flat, (0, 1, 64, 65), 0,
+                                                    4096))
