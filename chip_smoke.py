@@ -69,7 +69,19 @@ call.  Then it drives the port as a user would:
   (its reduced (H, g)); the backend on device 0 (``backend_device=0``, its
   mirror arena beside the live one): the oracle drive against the drive
   without it, and the production drive threaded in turns with the
-  threaded drive without it, the rows copied to the mirror counted.
+  threaded drive without it, the rows copied to the mirror counted;
+* the live viewer (``main_torch.py`` without ``--no-viz``): the production
+  drive with a ``viz_server.LiveViewer`` published at ``main.py``'s
+  cadence, in turns with the threaded drive without it (viewer, without,
+  without, viewer), a client thread reading ``/meta``, ``/cloud`` and
+  ``/frame`` throughout; its launches must equal the production drive's;
+  each publish timed with the rows and bytes it copied, the frame times,
+  the frame after a keyframe and the loop's iterations side by side; the
+  last served blob bitwise the one built from the arena's CPU copy, the
+  world cloud and the snapshot on the card against that copy; pause and
+  single step on the oracle clip; and ``dataset.img_downsample`` 2 on the
+  ViT-L engine (decode outputs bitwise the strided full ones, one match at
+  192x256 with kernel C's launches counted).
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 Exits non-zero, printing no result, when any phase fails, when the whole
@@ -166,6 +178,13 @@ SHARD_POSE_ATOL, SHARD_HG_RTOL = 2e-4, 4e-6
 BDEV_POSE_ATOL = 1e-5
 # the longest the NCCL processes of --cards N may take, each call
 NCCL_DEADLINE_S = 180.0
+# the live viewer: how often its client thread reads the endpoints, how
+# long a pause / step wait may take and how long a frame that must not come
+# is waited for; the card's world cloud against the CPU copy's (of the
+# points' scale: the Sim(3) action's f32 rounding, its products fused or
+# not) and the share of the snapshot's pixels that must agree
+VIEWER_POLL_S, VIEWER_WAIT_S, VIEWER_HOLD_S = 0.1, 60.0, 0.5
+VIEWER_CLOUD_RTOL, VIEWER_SNAPSHOT_AGREE = 1e-5, 0.999
 
 
 def card_info():
@@ -1139,7 +1158,7 @@ def build_engine(seed):
 
 
 def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
-                   backend_device=None):
+                   backend_device=None, viewer=None):
     """``main_torch.run`` (dataset -> ``SLAMSystem.process_frame`` -> the
     backend's rounds -> summary) over an in-memory clip with the
     configuration ``cfg`` (``config/base.yaml``: the rounds on the backend
@@ -1154,7 +1173,13 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
     the last round's BA inputs are kept for ``check_ba``.  With
     ``state_out`` the run saves its state there (``--state-out``), timed.
     ``backend_device`` goes to the system (``--backend-device``); an
-    engine split over a mesh launches kernel A once per entry."""
+    engine split over a mesh launches kernel A once per entry.  With a
+    ``viewer`` (a ``viz_server.LiveViewer``) the loop publishes to it at
+    ``main.py``'s cadence; each publish is timed on the host clock with the
+    keyframe rows and bytes it copied, and so is each frame's PNG.  Besides
+    each frame, the loop's iterations are timed start to start (the
+    publishes between frames included), and the frames that follow a
+    keyframe (INIT's included) are kept apart (``ROADMAP.md`` B.8)."""
     import torch
 
     import main_torch
@@ -1176,17 +1201,30 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
     mesh = getattr(engine, "mesh", None)
     n_split = mesh.shape["model"] if mesh is not None else 1
     threaded = system._backend_thread is not None
-    timing = {"frames": [], "rounds": []}
+    timing = {"frames": [], "rounds": [], "starts": [], "publishes": [],
+              "pngs": []}
     record = {}
     sym_pairs, warped = [], []
 
     def timed(out):
-        def hook(fn, *a):
+        def hook(fn, *a, **kw):
             t0 = time.perf_counter()
-            res = fn(*a)
+            res = fn(*a, **kw)
             out.append(((time.perf_counter() - t0) * 1e3, res))
             return res
         return hook
+
+    def timed_frame(fn, *a):
+        timing["starts"].append(time.perf_counter())
+        return timed(timing["frames"])(fn, *a)
+
+    def timed_publish(fn, *a, **kw):
+        rows, nbytes = viewer.rows_pulled, viewer.bytes_pulled
+        t0 = time.perf_counter()
+        fn(*a, **kw)
+        timing["publishes"].append(((time.perf_counter() - t0) * 1e3,
+                                    viewer.rows_pulled - rows,
+                                    viewer.bytes_pulled - nbytes))
 
     def keep_inputs(fn, arena, residual):
         g = system.graph
@@ -1212,7 +1250,7 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
         fn(path)
         timing["state_save_s"] = time.perf_counter() - t0
 
-    spies = [_Spy(system, "process_frame", timed(timing["frames"])),
+    spies = [_Spy(system, "process_frame", timed_frame),
              _Spy(system, "_process_task", timed(timing["rounds"])),
              _Spy(system.graph, "solve_poses", keep_inputs),
              _Spy(system.graph, "add_factors", keep_args),
@@ -1223,6 +1261,9 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
                   _counting(sym_pairs, True)),
              _Spy(system.graph._eng, "match_arrays_warp",
                   _counting(warped, False))]
+    if viewer is not None:
+        spies += [_Spy(viewer, "publish", timed_publish),
+                  _Spy(viewer, "publish_frame", timed(timing["pngs"]))]
     dataset = ClipDataset(frames)
     args = main_torch.parse_args(
         ["--no-viz"] + (["--state-out", state_out] if state_out else []))
@@ -1231,7 +1272,7 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
         flash_attention.launches = pack_rows.launches = 0
         gn.gn_sums.launches = gn.gn_solve.launches = 0
         t0 = time.perf_counter()
-        summary = main_torch.run(system, dataset, args)
+        summary = main_torch.run(system, dataset, args, viewer=viewer)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = {"attention": flash_attention.launches,
@@ -1349,13 +1390,21 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
     kf_ms = [ms for (ms, info) in timing["frames"][1:] if info["new_kf"]]
     plain_ms = [ms for (ms, info) in timing["frames"][1:]
                 if not info["new_kf"]]
+    # a frame after one that made a keyframe (INIT's first one included)
+    after_kf_ms = [ms for (ms, _), (_, prev) in zip(timing["frames"][1:],
+                                                     timing["frames"])
+                   if prev["new_kf"] or prev["mode"] == "INIT"]
+    iteration_ms = [float(x) for x in 1e3 * np.diff(timing["starts"])]
     rounds_ms = [ms for ms, _ in timing["rounds"]]
     print(f"{label}: process_frame ms {_r(frame_ms)}, keyframe frames "
-          f"{_r(kf_ms)}, plain tracked frames {_r(plain_ms)}; backend rounds "
-          f"(add_factors + solve_poses, "
+          f"{_r(kf_ms)}, frames after a keyframe {_r(after_kf_ms)}, plain "
+          f"tracked frames {_r(plain_ms)}; loop iterations start to start "
+          f"{_r(iteration_ms)}; backend rounds (add_factors + solve_poses, "
           f"{'on the thread' if threaded else 'inline'}) {_r(rounds_ms)}; "
           f"the drive {wall_ms:.1f} ms (host clock) [{card}]")
     timings = {"frame_ms": frame_ms, "keyframe_frame_ms": kf_ms,
+               "after_keyframe_frame_ms": after_kf_ms,
+               "iteration_ms": iteration_ms,
                "tracked_frame_ms": plain_ms,
                "backend_round_ms": rounds_ms[1:],   # round 0: INIT, no edge
                "drive_ms": wall_ms, "stats": stats,
@@ -1365,6 +1414,17 @@ def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
                "edge_store_mb": store_mb, "pregather_cache_mb": cache_mb}
     if "state_save_s" in timing:
         timings["state_save_s"] = timing["state_save_s"]
+    if viewer is not None:
+        timings.update(
+            publish_ms=[ms for ms, _, _ in timing["publishes"]],
+            publish_rows=[r for _, r, _ in timing["publishes"]],
+            publish_bytes=[b for _, _, b in timing["publishes"]],
+            frame_png_ms=[ms for ms, _ in timing["pngs"]])
+        print(f"{label}: {len(timing['publishes'])} map publishes, ms "
+              f"{_r(timings['publish_ms'])}, keyframe rows pulled "
+              f"{timings['publish_rows']}, bytes copied to the host "
+              f"{timings['publish_bytes']}; {len(timing['pngs'])} frame "
+              f"PNGs, ms {_r(timings['frame_png_ms'])} [{card}]")
     if system._bdev is not None:
         timings["mirror_rows_copied"] = system.mirror_rows_copied
         if system.graph.idx_ii2jj.device != system._bdev or \
@@ -1683,9 +1743,12 @@ def compare_threaded_inline(runs, card, label,
     """A drive's frames with the backend on its thread
     (``config/base.yaml``) beside the same frames with ``single_thread:
     True`` (or two other ``modes``), on the host clock as the frame loop
-    sees them: ``runs`` holds each mode's drives (run in turns)."""
-    keys = ("frame_ms", "keyframe_frame_ms", "tracked_frame_ms",
-            "drive_ms", "stats")
+    sees them: ``runs`` holds each mode's drives (run in turns); a key
+    that one of the drives lacks is left out."""
+    keys = [k for k in ("frame_ms", "keyframe_frame_ms",
+                        "after_keyframe_frame_ms", "tracked_frame_ms",
+                        "iteration_ms", "drive_ms", "stats")
+            if all(k in t for mode in modes for t in runs[mode])]
     print(f"{label}, {modes[0]} against {modes[1]} [{card}]:")
     for k in keys:
         for mode in modes:
@@ -2843,6 +2906,278 @@ def multi_card_main(args, cards, peak_flops, peak_bw, card):
     return 0
 
 
+def _http_get(port, path):
+    """The body of a GET of ``path`` from a viewer on localhost."""
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                  timeout=10).read()
+
+
+class _ViewerClient:
+    """A thread that reads a viewer's ``/meta``, ``/cloud`` and ``/frame``
+    every ``VIEWER_POLL_S`` until ``stop`` (five times the page's own
+    rate), counting the reads and bytes of each; a failed read other than
+    ``/frame`` before the first frame fails the run."""
+
+    def __init__(self, port):
+        import threading
+
+        self.port, self.reads, self.errors = port, {}, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        import urllib.error
+
+        while not self._stop.is_set():
+            for path in ("/meta", "/cloud", "/frame"):
+                try:
+                    body = _http_get(self.port, path)
+                except urllib.error.HTTPError as e:
+                    if path != "/frame" or e.code != 404:
+                        self.errors.append(f"{path}: {e}")
+                    continue
+                except OSError as e:
+                    self.errors.append(f"{path}: {e}")
+                    continue
+                n, size = self.reads.get(path, (0, 0))
+                self.reads[path] = (n + 1, size + len(body))
+            self._stop.wait(VIEWER_POLL_S)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        if self._thread.is_alive() or self.errors:
+            raise SystemExit(f"viewer client: {self.errors or 'hung'}")
+        return self.reads
+
+
+def check_viewer(engine, mcfg, cfg, frames, launches, card):
+    """The production drive with the live viewer (``main_torch.py`` without
+    ``--no-viz``), in turns with the threaded drive without it (viewer,
+    without, without, viewer), a client thread reading the viewer's
+    endpoints throughout.  Each viewer drive must launch every kernel as
+    often as the production drive (``launches``): the viewer launches
+    none.  The first one's last served ``/cloud`` must equal, bitwise, the
+    blob a fresh viewer builds from the arena copied to the CPU; the
+    arena's ``_world_cloud`` and snapshot image on the card are held
+    against the CPU copy's."""
+    import torch
+
+    from mast3r_slam_torch import viz
+    from mast3r_slam_torch.frame import arena_copy
+    from mast3r_slam_torch.viz_server import LiveViewer
+
+    runs = {"viewer": [], "without": []}
+    out = {}
+    for mode in ("viewer", "without", "without", "viewer"):
+        label = (f"production drive, {'with' if mode == 'viewer' else mode}"
+                 f" the viewer, run {len(runs[mode]) + 1}")
+        viewer = client = None
+        if mode == "viewer":
+            viewer = LiveViewer(port=0)
+            client = _ViewerClient(viewer.port)
+        try:
+            n_launch, system, _, t = drive_frontend(
+                engine, mcfg, cfg, frames, card, label, viewer=viewer)
+            if viewer is not None:
+                served = _http_get(viewer.port, "/cloud")
+                t["client_reads"] = client.stop()
+                client = None
+        finally:
+            if client is not None:
+                client.stop()
+            if viewer is not None:
+                viewer.close()
+        runs[mode].append(t)
+        if mode == "viewer":
+            for k in ("attention", "pack_rows", "gn_solve"):
+                if n_launch[k] != launches[k]:
+                    raise SystemExit(f"{label}: {k} launches "
+                                     f"{n_launch[k]} against the production "
+                                     f"drive's {launches[k]}")
+            print(f"{label}: client reads (count, bytes) "
+                  f"{t['client_reads']}; launches {n_launch} equal the "
+                  f"production drive's [{card}]")
+            out.setdefault("launches", n_launch)
+        if mode == "viewer" and len(runs[mode]) == 1:
+            cpu = arena_copy(system.arena, "cpu")
+            fresh = LiveViewer(port=0)
+            try:
+                t0 = time.perf_counter()
+                fresh.publish(cpu, stats=system.stats)
+                t1 = time.perf_counter()
+                fresh.publish(cpu, stats=system.stats)
+                t2 = time.perf_counter()
+            finally:
+                fresh.close()
+            if served != fresh._blob:
+                raise SystemExit(f"{label}: the served blob is not the one "
+                                 f"built from the arena's CPU copy")
+            # where a publish's host time goes, on the CPU copy (no copies
+            # from the card): each row's grid, then the composition
+            h, w = cpu.img_hw
+            extract_ms = []
+            for i in range(cpu.n_size):
+                t3 = time.perf_counter()
+                viz.extract_kf_grid(cpu.X[i].numpy(), cpu.C[i].numpy(),
+                                    int(cpu.N[i]), cpu.uimg[i].numpy(), h,
+                                    w, 1, 1.5)
+                extract_ms.append((time.perf_counter() - t3) * 1e3)
+            out.update(cpu_publish_cold_ms=(t1 - t0) * 1e3,
+                       cpu_publish_warm_ms=(t2 - t1) * 1e3,
+                       extract_row_ms=extract_ms)
+            print(f"{label}: on the arena's CPU copy a cold publish "
+                  f"({cpu.n_size} rows) takes {out['cpu_publish_cold_ms']:.1f}"
+                  f" ms, a warm one (compose + blob) "
+                  f"{out['cpu_publish_warm_ms']:.1f} ms, one row's grid "
+                  f"{_r(extract_ms)} ms (host clock) [{card}]")
+            pts, cols = viz._world_cloud(system.arena)
+            pts_c, cols_c = viz._world_cloud(cpu)
+            if pts.shape != pts_c.shape or not np.array_equal(cols, cols_c):
+                raise SystemExit(f"{label}: _world_cloud keeps other points "
+                                 f"on the card than on the CPU")
+            err = float(np.abs(pts - pts_c).max())
+            scale = float(np.abs(pts_c).max())
+            img = viz.snapshot_image(system.arena)
+            img_c = viz.snapshot_image(cpu)
+            agree = float((img == img_c).all(-1).mean())
+            out.update(blob_bytes=len(served), world_cloud_points=len(pts),
+                       world_cloud_max_abs_err=err,
+                       world_cloud_scale=scale,
+                       world_cloud_equal_share=float(
+                           (pts == pts_c).all(-1).mean()),
+                       snapshot_pixels_equal=agree)
+            print(f"{label}: served blob ({len(served)} bytes) bitwise the "
+                  f"CPU copy's; _world_cloud {len(pts)} points, max abs "
+                  f"difference card against CPU {err:.3g} (scale "
+                  f"{scale:.3g}), {out['world_cloud_equal_share']:.6f} "
+                  f"equal; snapshot pixels equal {agree:.6f} [{card}]")
+            if err > VIEWER_CLOUD_RTOL * (1.0 + scale) or \
+                    agree < VIEWER_SNAPSHOT_AGREE:
+                raise SystemExit(f"{label}: the card's map export disagrees "
+                                 f"with the CPU's")
+        del system
+        torch.cuda.empty_cache()
+    out.update(compare_threaded_inline(runs, card, "production drive",
+                                       modes=("viewer", "without")))
+    for k in ("publish_ms", "publish_rows", "publish_bytes",
+              "frame_png_ms", "client_reads"):
+        out[k] = [t[k] for t in runs["viewer"]]
+    return out
+
+
+def check_viewer_pause(card):
+    """Pause and single step through ``main_torch.run(..., viewer=)`` on
+    the card, over 6 frames of the 16-frame oracle clip (backend inline):
+    paused before the first frame nothing runs, each step lets exactly one
+    frame through, unpausing lets the run finish.  Each wait has a
+    deadline."""
+    import threading
+
+    import main_torch
+    from mast3r_slam_torch.testing import ClipDataset, SyntheticSequence
+    from mast3r_slam_torch.viz_server import LiveViewer
+
+    seq = SyntheticSequence(n_frames=16, h=48, w=64, seed=0, traj_scale=0.5)
+    system = _oracle_system(seq, "config/eval_no_calib.yaml", True)
+    frames, errors = [], []
+    process = system.process_frame
+
+    def counted(i, img):
+        frames.append(i)
+        return process(i, img)
+
+    system.process_frame = counted
+    viewer = LiveViewer(port=0)
+
+    def loop():
+        try:
+            main_torch.run(system, ClipDataset(seq.images[:6]),
+                           main_torch.parse_args(["--no-viz"]),
+                           viewer=viewer)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    def wait(cond):
+        end = time.monotonic() + VIEWER_WAIT_S
+        while not cond():
+            if time.monotonic() > end:
+                raise SystemExit(f"viewer pause / step: no progress in "
+                                 f"{VIEWER_WAIT_S} s (frames {frames})")
+            time.sleep(0.005)
+
+    steps = []
+    try:
+        _http_get(viewer.port, "/ctrl?pause=1")
+        thread = threading.Thread(target=loop, daemon=True)
+        thread.start()
+        time.sleep(VIEWER_HOLD_S)
+        steps.append(list(frames))
+        for k in (1, 2):
+            _http_get(viewer.port, "/ctrl?step=1")
+            wait(lambda: len(frames) >= k)
+            time.sleep(VIEWER_HOLD_S)
+            steps.append(list(frames))
+        _http_get(viewer.port, "/ctrl?pause=0")
+        thread.join(timeout=VIEWER_WAIT_S)
+        if thread.is_alive() or errors:
+            raise SystemExit(f"viewer pause / step: the run did not end "
+                             f"({errors})")
+    finally:
+        viewer.close()
+    if steps != [[], [0], [0, 1]] or frames != list(range(6)):
+        raise SystemExit(f"viewer pause / step: frames {steps} then "
+                         f"{frames}")
+    print(f"viewer pause / step on the card: paused {steps[0]}, one step "
+          f"{steps[1]}, two {steps[2]}, unpaused {frames}; "
+          f"{viewer._meta['nkf']} keyframes published [{card}]")
+    return {"pause_step_frames": steps + [frames]}
+
+
+def check_downsample(engine, frames, card):
+    """``dataset.img_downsample`` 2 on the ViT-L engine: ``decode_pair``'s
+    outputs against the ``downsample=1`` outputs strided by 2, bitwise;
+    one ``match_asymmetric`` at 192x256 with kernel C's launches counted
+    (as many as a full match has tables at that size)."""
+    import torch
+
+    from mast3r_slam_torch.inference import InferenceEngine
+    from mast3r_slam_torch.ops.pack import pack_rows
+
+    eng2 = InferenceEngine(engine.model, IMG_HW, downsample=2,
+                           match_cfg=engine.match_cfg, device="cuda")
+    norm = [torch.from_numpy(f.astype(np.float32) * (1.0 / 127.5) - 1.0)
+            [None].cuda() for f in frames[:2]]
+    (f1, p1), (f2, p2) = (engine.encode(x) for x in norm)
+    full = engine.decode_pair(f1, p1, f2, p2)
+    half = eng2.decode_pair(f1, p1, f2, p2)
+    for view, (A1, A2) in enumerate(zip(full, half)):
+        for name, a, b in zip("XCDQ", A1, A2):
+            if tuple(b.shape[1:3]) != eng2.out_hw or \
+                    not torch.equal(a[:, ::2, ::2], b):
+                raise SystemExit(f"downsample 2: {name}{view + 1} is not the "
+                                 f"strided full output")
+    torch.cuda.synchronize()
+    pack_rows.launches = 0
+    idx, valid, *_ = eng2.match_asymmetric(f2, p2, f1, p1)
+    torch.cuda.synchronize()
+    n_pack = pack_rows.launches
+    expect = len(pack_tables(eng2.match_cfg, eng2.out_hw))
+    hw = eng2.out_hw[0] * eng2.out_hw[1]
+    if tuple(idx.shape) != (1, hw) or n_pack != expect:
+        raise SystemExit(f"downsample 2: match_asymmetric gave {idx.shape} "
+                         f"with {n_pack} pack launches ({expect} expected)")
+    print(f"downsample 2: decode_pair outputs {eng2.out_hw} bitwise the "
+          f"strided full ones; match_asymmetric {tuple(idx.shape)}, valid "
+          f"share {float(valid.float().mean()):.3f}, pack launches {n_pack} "
+          f"[{card}]")
+    return {"out_hw": list(eng2.out_hw), "pack_launches": n_pack,
+            "valid_share": float(valid.float().mean())}
+
+
 def device_busy(fn, top=12):
     """Sum of the device kernels' times in one traced call of ``fn``
     (``torch.profiler``), printing the ``top`` kernels by time, and the
@@ -3015,6 +3350,13 @@ def main(argv=None):
                                                     "threaded"))
     multi["backend_device"]["mirror_rows_copied"] = [
         t["mirror_rows_copied"] for t in bdev_runs["backend_device"]]
+    # the same frames with the live viewer, in turns with the threaded
+    # drive without it; pause / step on the oracle clip; img_downsample 2
+    viewer = check_viewer(engine, mcfg, cfg, frames[:N_FRAMES], launches,
+                          card)
+    launches_viewer = viewer.pop("launches")
+    viewer.update(check_viewer_pause(card))
+    viewer["downsample"] = check_downsample(engine, frames, card)
 
     from mast3r_slam_torch.retrieval.database import RetrievalDatabase
 
@@ -3056,14 +3398,14 @@ def main(argv=None):
     state.update(drive_oracle_state(card))
     multi["backend_device"].update(drive_oracle_backend_device(card))
 
-    # the main path's launches: the production drive's, the retrieval
-    # drive's and the int8 drive's, each counted from 0 over its own run
+    # the main path's launches: each drive's, counted from 0 over its own
+    # run
     kinds = ("attention", "gn_accumulate", "gn_solve", "pack_rows")
     drives = {"production": launches, "retrieval": launches_retr,
               "int8": launches_int8, "tp": launches_tp,
-              "backend_device": launches_bdev}
+              "backend_device": launches_bdev, "viewer": launches_viewer}
     by_drive = {k: {d: n[k] for d, n in drives.items()} for k in kinds}
-    for d in ("retrieval", "int8", "tp", "backend_device"):
+    for d in ("retrieval", "int8", "tp", "backend_device", "viewer"):
         if not all(drives[d][k] > 0
                    for k in ("attention", "gn_solve", "pack_rows")):
             raise SystemExit(f"a kernel of the main path was not launched "
@@ -3109,6 +3451,7 @@ def main(argv=None):
     print(f"oracle ATE (m): {json.dumps(ate)}")
     print(f"tensor parallel: {json.dumps(tp)}")
     print(f"multi-GPU: {json.dumps(multi)}")
+    print(f"viewer: {json.dumps(viewer)}")
     print(f"state: {json.dumps(state)}")
     print(f"production drive, threaded, run 2, launches: "
           f"{json.dumps(launches_again)}")

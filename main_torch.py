@@ -15,13 +15,15 @@ last frame and ``--resume-state`` restores one before the first (with
 ``--start-frame``, a run in segments).  A run that ends lost (in RELOC)
 says so and exits 0, as ``main.py`` does.  ``--tp N`` splits the network
 over N devices (tensor parallel) and ``--backend-device I`` runs the
-backend on device I, as ``main.py`` runs them.
+backend on device I, as ``main.py`` runs them.  The live WebGL viewer
+(``viz_server.LiveViewer``) serves the map on localhost (``--viz-port``)
+unless ``--no-viz`` is given: it can pause the loop and step it one frame
+at a time.
 
-    python3 main_torch.py --dataset <clip> --config config/base.yaml --no-viz
+    python3 main_torch.py --dataset <clip> --config config/base.yaml
 
-Runs on the CUDA card unless ``--cpu`` is given.  The flags are ``main.py``'s
-where the module behind them is ported; a flag whose module belongs to a
-later slice of the port exits with one line that says so.
+Runs on the CUDA card unless ``--cpu`` is given.  The flags are
+``main.py``'s.
 """
 
 from __future__ import annotations
@@ -33,11 +35,6 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-# flag -> the slice of the port that brings its module
-LATER_SLICES = {
-    "viz_port": "viewer slice (live WebGL viewer)",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -46,7 +43,10 @@ def parse_args(argv=None):
     p.add_argument("--config", default="config/base.yaml")
     p.add_argument("--save-as", default="default")
     p.add_argument("--no-viz", action="store_true",
-                   help="headless (required: the viewer is a later slice)")
+                   help="headless: no live viewer (map export still runs)")
+    p.add_argument("--viz-port", type=int, default=8089,
+                   help="live WebGL viewer port (serves on localhost; 0 "
+                        "takes a free port)")
     p.add_argument("--calib", default="",
                    help="intrinsics yaml override (config/intrinsics.yaml "
                         "schema)")
@@ -136,21 +136,7 @@ def parse_args(argv=None):
                    help="run the backend (the keyframe rounds' decodes, "
                         "matches and BA) on this device index, with a "
                         "mirror of the keyframe arena there (pipeline.py)")
-    # flags of main.py whose modules are later slices of the port
-    p.add_argument("--viz-port", type=int, default=None)
     return p.parse_args(argv)
-
-
-def refuse_later_slices(args):
-    """Exit with one line for a flag whose module is not ported yet."""
-    for name, slice_ in LATER_SLICES.items():
-        value = getattr(args, name)
-        if value is not None and value is not False:
-            sys.exit(f"--{name.replace('_', '-')} is not ported yet: "
-                     f"{slice_}")
-    if not args.no_viz:
-        sys.exit("running without --no-viz is not ported yet: viewer slice "
-                 "(live WebGL viewer)")
 
 
 def load_model(args):
@@ -176,7 +162,30 @@ def load_model(args):
     return model
 
 
-def run(system, dataset, args):
+def wait_for_step(viewer):
+    """Hold the loop while the viewer is paused, until a single step is
+    asked for, and take that step (main.py:317-325)."""
+    msg = viewer.get_msg()
+    while msg.is_paused and msg.next == 0:
+        time.sleep(0.05)
+        msg = viewer.get_msg()
+    if msg.is_paused:
+        viewer.consume_step()
+
+
+def publish_map(viewer, system, edges=True):
+    """The map to the viewer: the keyframes whose rows changed, the poses
+    and, with ``edges``, the graph's edges, read under the system's lock
+    (main.py:338-342).  The backend writes ``ii`` / ``jj`` before it raises
+    ``n_edges``, so ``n_edges`` is read first."""
+    g = system.graph
+    ne = int(g.n_edges)
+    ii, jj = (g.ii[:ne], g.jj[:ne]) if edges else (None, None)
+    viewer.publish(system.arena, ii, jj, stats=system.stats,
+                   lock=system._lock)
+
+
+def run(system, dataset, args, viewer=None):
     """The frame loop (main.py:288-358) as a function of the system, a
     dataset (``len``, ``dataset[i] -> (timestamp, image)``) and the parsed
     arguments (``max_frames``, ``start_frame``, ``diag_out``).  The next
@@ -184,7 +193,11 @@ def run(system, dataset, args):
     prefetch thread while the device works on the current one.  With
     ``args.state_out`` the state is saved after the last frame.  A frame
     that loses tracking puts the system in RELOC, where the next frames try
-    to relocalize, as in ``main.py``.  Returns the run's summary
+    to relocalize, as in ``main.py``.  With a ``viz_server.LiveViewer`` the
+    loop waits before each frame while the viewer is paused (a step lets
+    one frame through), publishes every third frame's image and, on a new
+    keyframe or every 15th frame, the map, and the map once more after
+    ``terminate``, at ``main.py``'s cadence.  Returns the run's summary
     (``lost_at``: the first frame that lost tracking; ``lost_at_end``: the
     run ended in RELOC)."""
     n = len(dataset)
@@ -195,7 +208,7 @@ def run(system, dataset, args):
 
     def load(idx):
         ts, raw = dataset[idx]
-        return ts, system.prepare_image(raw)
+        return ts, raw, system.prepare_image(raw)
 
     lost_at = None
     done = 0
@@ -209,7 +222,9 @@ def run(system, dataset, args):
         try:
             fut = prefetch.submit(load, i0) if i0 < n else None
             for i in range(i0, n):
-                timestamp, prepared = fut.result()
+                if viewer is not None:
+                    wait_for_step(viewer)
+                timestamp, raw, prepared = fut.result()
                 if i + 1 < n:
                     fut = prefetch.submit(load, i + 1)
                 info = system.process_frame(i, prepared)
@@ -218,6 +233,10 @@ def run(system, dataset, args):
                     info["i"] = i
                     info["ts"] = float(timestamp)
                     diag_f.write(json.dumps(info) + "\n")
+                if viewer is not None and i % 3 == 0:
+                    viewer.publish_frame(raw)
+                if viewer is not None and (info["new_kf"] or i % 15 == 0):
+                    publish_map(viewer, system)
                 if system.mode.name == "RELOC" and lost_at is None:
                     lost_at = i
                     print(f"[lost] tracking lost at frame {i}; "
@@ -240,6 +259,8 @@ def run(system, dataset, args):
             print(f"state saved to {args.state_out}")
     finally:
         system.terminate()
+    if viewer is not None:
+        publish_map(viewer, system, edges=False)
     wall = time.time() - t0
     trk = system.tracker
     rounds = system.stats["ba_rounds"]
@@ -307,7 +328,6 @@ def export(system, dataset, args):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_later_slices(args)
 
     import torch
     import yaml
@@ -406,14 +426,26 @@ def main(argv=None):
             print("[warn] retrieval checkpoint/codebook not found - "
                   "loop closure and relocalization proposals disabled")
     profiler = TimeProfiler(enabled=args.profile)
-    system = SLAMSystem(config, engine, (h, w), K=K, retrieval=retrieval,
-                        device=device, profiler=profiler,
-                        backend_device=args.backend_device)
-    if args.resume_state:
-        system.load_state(args.resume_state)
-        print(f"resumed from {args.resume_state}: {system.arena.n_size} "
-              f"keyframes, mode={system.mode}")
-    summary = run(system, dataset, args)
+    viewer = None
+    if not args.no_viz:
+        from mast3r_slam_torch.viz_server import LiveViewer
+
+        # bound before the system starts its backend thread: a port in use
+        # fails here, with nothing yet to stop
+        viewer = LiveViewer(port=args.viz_port)
+        print(f"live viewer: http://127.0.0.1:{viewer.port}/")
+    try:
+        system = SLAMSystem(config, engine, (h, w), K=K, retrieval=retrieval,
+                            device=device, profiler=profiler,
+                            backend_device=args.backend_device)
+        if args.resume_state:
+            system.load_state(args.resume_state)
+            print(f"resumed from {args.resume_state}: "
+                  f"{system.arena.n_size} keyframes, mode={system.mode}")
+        summary = run(system, dataset, args, viewer=viewer)
+    finally:
+        if viewer is not None:
+            viewer.close()
     print(f"done: {summary['frames']} frames in {summary['seconds']:.1f}s "
           f"({summary['fps']:.2f} FPS)")
     print(f"stats: {summary['stats']}")

@@ -47,10 +47,6 @@ class InferenceEngine:
         ``device``, where the partial sums are reduced.  With
         ``int8_encoder`` the whole weights are quantised and their codes
         split (``quant.shard_qparams_tp``)."""
-        if downsample != 1:
-            raise NotImplementedError(
-                f"dataset.img_downsample={downsample} is not ported (the "
-                f"port runs 1, as every shipped config does)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 heads (``--fp32-head``, the reference's autocast policy):
@@ -84,6 +80,11 @@ class InferenceEngine:
         p = model.cfg.patch_size
         self.n_patches = (img_hw[0] // p) * (img_hw[1] // p)
         self.feat_dim = model.cfg.enc_embed_dim
+        # dataset.img_downsample: every head output strided by it
+        # (inference.py:70-76)
+        self.downsample = int(downsample)
+        ds = self.downsample
+        self.out_hw = (img_hw[0] // ds, img_hw[1] // ds)
 
     @torch.no_grad()
     def encode(self, img):
@@ -121,7 +122,9 @@ class InferenceEngine:
         (``_decode_head``, inference.py:119-145, 165).  With
         ``int8_local_head``: decode, the DPT, the int8 local-feature MLP on
         (encoder, last decoder) tokens, the postprocess.  Returns ((X, C,
-        D, Q) for view 1, for view 2), each (B, h, w, ...)."""
+        D, Q) for view 1, for view 2), each (B, h, w, ...), (h, w) the
+        engine's ``out_hw``: every ``downsample``-th row and column of the
+        heads' output (``_pack``, inference.py:146-157)."""
         m = self.model
         if self.qlocal is None:
             res = m.decode_and_head(feat1, pos1, feat2, pos2, self.img_hw)
@@ -133,7 +136,10 @@ class InferenceEngine:
                     self.img_hw, m.cfg)
                 res.append(postprocess(m.head_dpt(n, toks, self.img_hw),
                                        local, m.cfg))
-        return tuple((r["pts3d"], r["conf"], r["desc"], r["desc_conf"])
+        ds = self.downsample
+        return tuple(tuple(A if ds == 1 else A[:, ::ds, ::ds].contiguous()
+                           for A in (r["pts3d"], r["conf"], r["desc"],
+                                     r["desc_conf"]))
                      for r in res)
 
     def inference_mono(self, feat, pos):
@@ -153,7 +159,9 @@ class InferenceEngine:
         (1, hw, ...).  The descriptors are quantised here, outside
         ``match``, which takes the int8 arrays as they are; the two
         (1, hw, f) int8 tables ride along for the backend's consecutive
-        edge (None when the matcher does not run on int8 tables)."""
+        edge (None when the matcher does not run on int8 tables).  Without
+        ``idx_i2j_init`` the matcher starts from the identity on the
+        ``out_hw`` grid of the strided pointmaps (inference.py:186-190)."""
         (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = self.decode_pair(
             frame_feat, frame_pos, kf_feat, kf_pos)
         b = Xii.shape[0]

@@ -100,6 +100,15 @@ class SLAMSystem:
         if engine.device != self.device:
             raise ValueError(f"engine runs on {engine.device}, the system "
                              f"on {self.device}")
+        ds = getattr(engine, "downsample", 1)
+        if ds != 1:
+            # JAX's pipeline.py:81-82 sizes the arena from img_hw as well
+            # and fails at the first frame's fusion (ROADMAP.md C)
+            raise ValueError(
+                f"dataset.img_downsample={ds}: the engine's pointmaps are "
+                f"{engine.out_hw}, but the system's frames and keyframe "
+                f"arena are {tuple(img_hw)}; the SLAM system runs only "
+                f"img_downsample 1, as the reference pipeline does")
         self.cfg = cfg
         self.img_hw = tuple(img_hw)
         h, w = self.img_hw

@@ -434,9 +434,9 @@ def test_main_torch_oracle_end_to_end(clip, tmp_path, monkeypatch, capsys,
     systems = []
     run = main_torch.run
 
-    def spy(system, dataset, args):
+    def spy(system, dataset, args, **kw):
         systems.append(system)
-        return run(system, dataset, args)
+        return run(system, dataset, args, **kw)
 
     monkeypatch.setattr(main_torch, "run", spy)
     rc = main_torch.main([
@@ -502,10 +502,10 @@ def test_main_torch_says_the_backend_runs_inline(clip, tmp_path,
     systems = []
     run = main_torch.run
 
-    def spy(system, dataset, args):
+    def spy(system, dataset, args, **kw):
         systems.append(system)
         assert system._backend_thread.is_alive()
-        return run(system, dataset, args)
+        return run(system, dataset, args, **kw)
 
     monkeypatch.setattr(main_torch, "run", spy)
     rc = main_torch.main(["--dataset", str(d), "--config", "config/base.yaml",
@@ -521,16 +521,45 @@ def test_main_torch_says_the_backend_runs_inline(clip, tmp_path,
     assert "ba_rounds " in out and "ba_rounds 0 " not in out
 
 
-@pytest.mark.parametrize("flag", [["--viz-port", "8089"], []],
-                         ids=lambda f: f[0] if f else "without --no-viz")
-def test_main_torch_refuses_later_slices(flag):
-    """A flag whose module is a later slice exits with one line naming the
-    slice; it does not run something else."""
-    argv = ["--cpu"] + flag + (["--no-viz"] if flag else [])
-    with pytest.raises(SystemExit) as e:
-        main_torch.main(argv)
-    msg = str(e.value.code)
-    assert "not ported yet" in msg and "slice" in msg and "\n" not in msg
+@pytest.mark.parametrize("no_viz", [False, True],
+                         ids=["--viz-port", "--no-viz"])
+def test_main_torch_runs_the_viewer(clip, tmp_path, monkeypatch, capsys,
+                                    no_viz):
+    """``--viz-port`` and a run without ``--no-viz`` (the refusals they
+    replace named the viewer as a later slice) on ``--cpu``: the live
+    viewer serves on the given port (0: a free one), prints ``main.py``'s
+    line, receives the map and is closed when the run ends; ``--no-viz``
+    starts none."""
+    from mast3r_slam_torch import viz_server
+
+    _, _, d = clip
+    monkeypatch.chdir(tmp_path)
+    root = main_torch.pathlib.Path(main_torch.__file__).parent
+    (tmp_path / "config").symlink_to(root / "config")
+    viewers = []
+
+    class Kept(viz_server.LiveViewer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            viewers.append(self)
+
+    monkeypatch.setattr(viz_server, "LiveViewer", Kept)
+    rc = main_torch.main(["--dataset", str(d), "--config",
+                          "config/eval_no_calib.yaml", "--oracle", "--cpu",
+                          "--viz-port", "0", "--max-frames", "6",
+                          "--save-as", "run"] + (["--no-viz"] if no_viz
+                                                 else []))
+    out = capsys.readouterr().out
+    assert rc == 0 and "done: 6 frames" in out
+    if no_viz:
+        assert not viewers and "live viewer" not in out
+        return
+    (viewer,) = viewers
+    assert viewer.port != 0
+    assert f"live viewer: http://127.0.0.1:{viewer.port}/" in out
+    assert viewer._meta["version"] >= 2 and viewer._meta["nkf"] >= 1
+    assert viewer._frame_png[:8] == b"\x89PNG\r\n\x1a\n"
+    assert not viewer._thread.is_alive()
 
 
 @pytest.mark.parametrize("case", ["tp", "tp-unavailable", "backend-device"])
@@ -576,9 +605,9 @@ def _cli_net(d, tmp_path, monkeypatch, argv, entry=main_torch.main):
     systems = []
     run = main_torch.run
 
-    def spy(system, dataset, args):
+    def spy(system, dataset, args, **kw):
         systems.append(system)
-        return run(system, dataset, args)
+        return run(system, dataset, args, **kw)
 
     monkeypatch.setattr(main_torch, "run", spy)
     rc = entry(["--dataset", str(d), "--config", "config/base.yaml",

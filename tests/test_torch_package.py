@@ -84,12 +84,18 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
         pack_rows(torch.zeros(1, 8, 2, device="meta"), (0, 1))
 
 
-def test_engine_refuses_img_downsample_by_name():
+def test_engine_takes_img_downsample():
+    """``downsample=2`` (``dataset.img_downsample``) is taken: the engine's
+    ``out_hw`` halves the image, and a decode's outputs have that shape
+    (``tests/test_torch_downsample.py`` holds them against JAX's)."""
     from mast3r_slam_torch.inference import InferenceEngine
 
     model, hw = _tiny_engine_parts()
-    with pytest.raises(NotImplementedError, match="img_downsample"):
-        InferenceEngine(model, hw, downsample=2, device="cpu")
+    engine = InferenceEngine(model, hw, downsample=2, device="cpu")
+    assert engine.out_hw == (16, 24)
+    feat, pos = engine.encode(torch.zeros(1, *hw, 3))
+    for view in engine.decode_pair(feat, pos, feat, pos):
+        assert [tuple(A.shape[1:3]) for A in view] == [(16, 24)] * 4
 
 
 @pytest.mark.parametrize("path", ["config/base.yaml",

@@ -64,7 +64,8 @@ def _codebooks(seed, K, D):
 # ASMK host code
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,d", [(5, 130), (7, 64), (3, 1024)])
+@pytest.mark.parametrize("n,d", [(5, 130), (7, 64), (3, 1024), (4, 320),
+                                 (1, 700), (2, 832)])
 def test_binarize_and_hamming_match_jax(n, d):
     rng = np.random.default_rng(d)
     A = rng.standard_normal((n, d)).astype(np.float32)

@@ -64,9 +64,9 @@ def _cli(tmp_path, monkeypatch, argv):
     systems = []
     run = main_torch.run
 
-    def spy(system, dataset, args):
+    def spy(system, dataset, args, **kw):
         systems.append(system)
-        return run(system, dataset, args)
+        return run(system, dataset, args, **kw)
 
     monkeypatch.setattr(main_torch, "run", spy)
     rc = main_torch.main(argv)
