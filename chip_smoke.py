@@ -81,7 +81,24 @@ call.  Then it drives the port as a user would:
   world cloud and the snapshot on the card against that copy; pause and
   single step on the oracle clip; and ``dataset.img_downsample`` 2 on the
   ViT-L engine (decode outputs bitwise the strided full ones, one match at
-  192x256 with kernel C's launches counted).
+  192x256 with kernel C's launches counted);
+* a published checkpoint file: the conditioned ViT-L weights written as a
+  MASt3R run saves them (``args`` Namespace, ``model`` state dict with
+  ``dec_blocks2``, the DPT's ``layer_rn`` aliases and ``mask_token``),
+  loaded through ``main_torch.load_model``: every tensor equal to the
+  written ones, encode + ``decode_pair`` bitwise the production engine's;
+  the file's bytes, write, read and load seconds;
+* ``main_torch.main`` as a user runs it, from the production frames written
+  as a PNG clip, with that checkpoint file and ``config/base.yaml``
+  unmodified: its launches and stats must equal the in-memory production
+  drive's, and its keyframe poses' largest difference from that drive is
+  printed;
+* the evaluation tools (``mast3r_slam_torch/tools``), each a process under
+  a deadline: a synthetic clip written by ``make_synthetic_clip``,
+  ``eval_protocol`` over it on the card and on the CPU (ATE within the
+  oracle's card-against-CPU bound), ``analyze_drive`` on the card run's
+  ``--diag-out``, and ``segmented_drive`` in 3 segments on the card against
+  the one-process run.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 Exits non-zero, printing no result, when any phase fails, when the whole
@@ -140,6 +157,8 @@ ORACLE_THREAD_ATOL = ORACLE_RESUME_ATOL = 1e-6
 # the longest a drain may wait for the backend's queued rounds, and the
 # whole script's deadline: a stuck round fails the run instead of hanging it
 DRAIN_S, WATCHDOG_S = 300.0, 1150.0
+# when the watchdog fires (time.monotonic()), set by main
+_DEADLINE = [float("inf")]
 # the card's BA against the CPU's on the same inputs: H and g of one
 # iteration (relative to their largest entry; read 4.5e-7 and 2.8e-7 on an
 # H100), and the whole solve's poses (read 1.8e-4; the drive's round does
@@ -185,6 +204,10 @@ NCCL_DEADLINE_S = 180.0
 # not) and the share of the snapshot's pixels that must agree
 VIEWER_POLL_S, VIEWER_WAIT_S, VIEWER_HOLD_S = 0.1, 60.0, 0.5
 VIEWER_CLOUD_RTOL, VIEWER_SNAPSHOT_AGREE = 1e-5, 0.999
+# the evaluation tools' clip (frames, h, w: the size of the tools' CPU
+# tests), the protocol frames of each of segmented_drive's 3 segments, and
+# the longest one tool's process may take
+EVAL_CLIP, EVAL_SEGMENT, TOOL_TIMEOUT_S = (48, 48, 64), 8, 240
 
 
 def card_info():
@@ -3178,6 +3201,329 @@ def check_downsample(engine, frames, card):
             "valid_share": float(valid.float().mean())}
 
 
+def write_published_checkpoint(sd, mcfg, path):
+    """``sd`` saved as a MASt3R training run saves it, the layout of the
+    published ``MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth``: a
+    dict with the run's ``argparse.Namespace`` under ``"args"`` (its
+    ``model`` string) and the state dict under ``"model"``, with
+    ``dec_blocks2``, the DPT's ``scratch.layer_rn`` aliases and the CroCo
+    ``mask_token``.  The conditioned weights tie the second decoder and
+    head to the first, and ``torch.save`` writes a storage its tensors
+    share once, so the file is smaller than a published one.  Returns the
+    file's bytes and the write seconds."""
+    import os
+
+    import torch
+
+    for k in ("dec_blocks2.0.attn.qkv.weight",
+              "downstream_head1.dpt.scratch.layer_rn.0.weight"):
+        if k not in sd:
+            raise SystemExit(f"the state dict has no {k}: not the published "
+                             f"layout")
+    model_args = (
+        f"AsymmetricMASt3R(enc_depth={mcfg.enc_depth}, "
+        f"dec_depth={mcfg.dec_depth}, enc_embed_dim={mcfg.enc_embed_dim}, "
+        f"dec_embed_dim={mcfg.dec_embed_dim}, "
+        f"enc_num_heads={mcfg.enc_num_heads}, "
+        f"dec_num_heads={mcfg.dec_num_heads}, head_type='catmlp+dpt', "
+        f"output_mode='pts3d+desc{mcfg.local_feat_dim}', "
+        f"patch_size={mcfg.patch_size}, img_size=(512, 512))")
+    t0 = time.perf_counter()
+    torch.save({"args": argparse.Namespace(model=model_args),
+                "model": {**sd, "mask_token": torch.zeros(
+                    1, 1, mcfg.dec_embed_dim)}}, path)
+    return os.path.getsize(path), time.perf_counter() - t0
+
+
+def check_checkpoint(engine, sd, mcfg, frames, path, card):
+    """The conditioned ViT-L f32 weights (``sd``) written as a published
+    checkpoint file, loaded through ``main_torch.load_model`` (``--checkpoint``:
+    ``models/convert.py::load_checkpoint``): every tensor must equal
+    ``sd``'s, the engine built from the loaded model must hold the
+    production engine's tensors, and one encode of two frames and their
+    ``decode_pair`` through both engines must be bitwise equal.  The file's
+    bytes and its write, read and load seconds are on the host clock."""
+    import torch
+
+    import main_torch
+    from mast3r_slam_torch.inference import InferenceEngine
+    from mast3r_slam_torch.models import convert
+
+    nbytes, write_s = write_published_checkpoint(sd, mcfg, path)
+    read_s = []
+
+    def timed_read(fn, *a, **kw):
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        read_s.append(time.perf_counter() - t0)
+        return res
+
+    spy = _Spy(convert, "load_torch_checkpoint", timed_read)
+    try:
+        t0 = time.perf_counter()
+        model = main_torch.load_model(
+            main_torch.parse_args(["--checkpoint", path]))
+        load_s = time.perf_counter() - t0
+    finally:
+        spy.restore()
+    if len(read_s) != 1:
+        raise SystemExit("main_torch.load_model did not read the checkpoint "
+                         "through load_torch_checkpoint")
+    got = model.state_dict()
+    if set(got) != set(sd) or not all(torch.equal(got[k], sd[k])
+                                      for k in sd):
+        raise SystemExit("the checkpoint loaded by main_torch.load_model "
+                         "does not hold the written weights")
+    eng = InferenceEngine(model, IMG_HW, device="cuda")
+    mine, ref = eng.model.state_dict(), engine.model.state_dict()
+    if set(mine) != set(ref) or not all(torch.equal(mine[k], ref[k])
+                                        for k in ref):
+        raise SystemExit("the engine of the loaded checkpoint does not hold "
+                         "the production engine's tensors")
+    norm = [torch.from_numpy(f.astype(np.float32) * (1.0 / 127.5) - 1.0)
+            [None].cuda() for f in frames[:2]]
+    outs = []
+    for e in (engine, eng):
+        (f1, p1), (f2, p2) = (e.encode(x) for x in norm)
+        outs.append([f1, p1, f2, p2] + [a for view in e.decode_pair(
+            f1, p1, f2, p2) for a in view])
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise SystemExit("encode + decode_pair of the loaded checkpoint is "
+                         "not bitwise the production engine's")
+    out = {"file_bytes": nbytes, "write_s": write_s, "read_s": read_s[0],
+           "load_model_s": load_s, "tensors": len(sd),
+           "encode_decode_bitwise": True}
+    print(f"checkpoint: the published layout ({len(sd)} tensors + "
+          f"mask_token, {nbytes} bytes) written in {write_s:.1f} s; "
+          f"main_torch.load_model read it in {read_s[0]:.1f} s and built "
+          f"and loaded the ViT-L network in {load_s:.1f} s (host clock); "
+          f"every tensor equal to the written ones, the engine's to the "
+          f"production engine's, encode + decode_pair bitwise [{card}]")
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_cli(ckpt, frames, tmp, card):
+    """``main_torch.main`` as a user runs it, in process: ``frames`` written
+    as a clip folder of PNGs, ``--config config/base.yaml`` unmodified
+    (threaded backend, bf16 heads), ``--checkpoint`` the published file,
+    ``--no-viz``.  Every kernel's count is set to 0 just before the call
+    and read just after.  Returns its launches, stats, keyframe poses and
+    times."""
+    import os
+
+    import torch
+    from PIL import Image
+
+    import main_torch
+    from mast3r_slam_torch.ops import gn
+    from mast3r_slam_torch.ops.attention import flash_attention
+    from mast3r_slam_torch.ops.pack import pack_rows
+
+    clip = f"{tmp}/clip"
+    os.makedirs(clip)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(f"{clip}/{i:06d}.png")
+    kept = {}
+
+    def keep(fn, system, dataset, args, **kw):
+        res = fn(system, dataset, args, **kw)
+        kept.update(system=system, summary=res)
+        return res
+
+    spy = _Spy(main_torch, "run", keep)
+    try:
+        torch.cuda.synchronize()
+        flash_attention.launches = pack_rows.launches = 0
+        gn.gn_sums.launches = gn.gn_solve.launches = 0
+        t0 = time.perf_counter()
+        rc = main_torch.main([
+            "--dataset", clip, "--config", "config/base.yaml",
+            "--checkpoint", ckpt, "--no-viz", "--save-as", f"{tmp}/run",
+            "--rates-out", f"{tmp}/rates.json"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {"attention": flash_attention.launches,
+                    "gn_accumulate": gn.gn_sums.launches,
+                    "gn_solve": gn.gn_solve.launches,
+                    "pack_rows": pack_rows.launches}
+    finally:
+        spy.restore()
+    system, summary = kept["system"], kept["summary"]
+    launches["gn_iterations"] = system.tracker.gn_iters_total
+    n_kf = system.arena.n_size
+    kf = system.arena.T_WC[:n_kf].cpu()
+    traj = np.loadtxt(f"{tmp}/run/clip.txt", ndmin=2)
+    if rc != 0 or summary["frames"] != len(frames) or \
+            summary["lost_at"] is not None or len(traj) != n_kf or \
+            not bool(torch.isfinite(kf).all()):
+        raise SystemExit(f"main_torch.main from the PNG clip failed: exit "
+                         f"{rc}, {summary['frames']} frames, lost at "
+                         f"{summary['lost_at']}, {len(traj)} trajectory rows "
+                         f"for {n_kf} keyframes")
+    print(f"main_torch.main from {len(frames)} PNGs with the checkpoint "
+          f"file and config/base.yaml: {wall_s:.1f} s in all (load, drive, "
+          f"export; host clock), drive {summary['seconds']:.2f} s, stats "
+          f"{summary['stats']}, launches {launches} [{card}]")
+    return {"launches": launches, "stats": summary["stats"], "kf": kf,
+            "main_s": wall_s, "drive_s": summary["seconds"]}
+
+
+def compare_cli_drive(cli, launches, bf16_drive, card):
+    """The CLI drive from disk against the in-memory production drive:
+    equal launches of every kernel and equal stats; the largest keyframe
+    pose difference is printed (a finding, not a gate)."""
+    for k in ("attention", "gn_accumulate", "gn_solve", "pack_rows"):
+        if cli["launches"][k] != launches[k]:
+            raise SystemExit(f"CLI drive: {k} launches {cli['launches'][k]} "
+                             f"against the production drive's {launches[k]}")
+    if cli["stats"] != bf16_drive["timings"]["stats"]:
+        raise SystemExit(f"CLI drive: stats {cli['stats']} against the "
+                         f"production drive's "
+                         f"{bf16_drive['timings']['stats']}")
+    kf, ref = cli.pop("kf"), bf16_drive["kf"]
+    cli["kf_pose_max_abs_diff"] = float((kf - ref).abs().max()) \
+        if kf.shape == ref.shape else None
+    print(f"CLI drive against the in-memory production drive: launches and "
+          f"stats equal, keyframe poses {cli['kf_pose_max_abs_diff']} apart "
+          f"(largest absolute difference) [{card}]")
+    return cli
+
+
+def run_tool(argv, timeout, label):
+    """``python`` with ``argv`` from the repository root, in a session of
+    its own so that a timeout kills its whole process tree; fails the run
+    on a non-zero exit or a timeout.  The timeout ends before the script's
+    watchdog would, which could not stop the tree.  Returns its output."""
+    import os
+    import signal
+
+    timeout = min(timeout, _DEADLINE[0] - time.monotonic() - 10.0)
+    if timeout <= 0:
+        raise SystemExit(f"{label}: no time left before the watchdog")
+    proc = subprocess.Popen([sys.executable, *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out)
+        raise SystemExit(f"{label}: no exit within {timeout:.0f} s")
+    if proc.returncode != 0:
+        print(out)
+        raise SystemExit(f"{label}: exit {proc.returncode}")
+    return out
+
+
+# tools/eval_protocol.py over a suite of one clip, its logs under a root of
+# its own (``LOGS``): argv[1:4] are the logs root, the suite's dataset root
+# and the --main-args string
+EVAL_PROTOCOL_RUN = """
+import pathlib, sys
+from mast3r_slam_torch.tools import eval_protocol as ep
+logs, root, main_args = sys.argv[1:4]
+ep.LOGS = pathlib.Path(logs)
+ep.SUITES["synthetic"] = ep.Suite("synthetic", ["clip"], root, "dataset",
+                                  0.05)
+sys.exit(ep.main(["synthetic", "--no-calib", "--main-args", main_args]))
+"""
+
+
+def check_eval_tools(card):
+    """The evaluation tools on the card's machine, each a process under a
+    deadline: ``tools/make_synthetic_clip`` writes the 48-frame 48x64 clip;
+    ``tools/eval_protocol`` runs ``main_torch.py --oracle`` over it at
+    ``config/eval_no_calib.yaml`` on the card and again with ``--cpu``: both
+    ATEs under the 0.05 m limit and within ``ORACLE_ATE_CPU_ATOL`` of each
+    other; ``tools/analyze_drive`` reads the card run's ``--diag-out``;
+    ``tools/segmented_drive`` runs the clip on the card in 3 segments, whose
+    trajectory must hold the one-process card run's keyframes, poses within
+    ``ORACLE_RESUME_ATOL``."""
+    import shutil
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = f"{tmp}/suite/clip"
+        t0 = time.perf_counter()
+        run_tool(["-m", "mast3r_slam_torch.tools.make_synthetic_clip", clip,
+                  str(EVAL_CLIP[0]), str(EVAL_CLIP[1]), str(EVAL_CLIP[2])],
+                 TOOL_TIMEOUT_S, "make_synthetic_clip")
+        shutil.copy(f"{clip}/gt.txt", f"{clip}/groundtruth.txt")
+        out["make_synthetic_clip_s"] = time.perf_counter() - t0
+        ates, trajs = {}, {}
+        for dev, extra in (("card", f"--diag-out {tmp}/diag.jsonl"),
+                           ("cpu", "--cpu")):
+            logs = f"{tmp}/logs_{dev}"
+            t0 = time.perf_counter()
+            text = run_tool(["-c", EVAL_PROTOCOL_RUN, logs, f"{tmp}/suite",
+                             f"--oracle {extra} --rates-out "
+                             f"{tmp}/rates_{dev}.json"],
+                            TOOL_TIMEOUT_S, f"eval_protocol ({dev})")
+            out[f"eval_protocol_{dev}_s"] = time.perf_counter() - t0
+            with open(f"{logs}/ate_synthetic_no_calib_torch.json") as f:
+                table = json.load(f)
+            ates[dev] = table["ate_rmse"]["clip"]
+            trajs[dev] = np.loadtxt(
+                f"{logs}/synthetic/no_calib/clip/clip.txt", ndmin=2)
+            print(f"eval_protocol ({dev}): "
+                  + " | ".join(ln.strip() for ln in text.splitlines()
+                               if ln.startswith(("stats:", "  clip")))
+                  + f" [{card}]")
+        diff = abs(ates["card"] - ates["cpu"])
+        out.update(ate_card=ates["card"], ate_cpu=ates["cpu"],
+                   ate_card_cpu_diff=diff)
+        print(f"eval_protocol: ATE {ates['card']!r} m on the card, "
+              f"{ates['cpu']!r} m on the CPU, {diff:.3g} apart (limit "
+              f"{ORACLE_ATE_CPU_ATOL}) [{card}]")
+        if not max(ates.values()) < ORACLE_ATE_LIMIT["uncalibrated"] or \
+                diff > ORACLE_ATE_CPU_ATOL:
+            raise SystemExit("eval_protocol: the card's ATE fails its limit "
+                             "or the CPU's")
+        est = f"{tmp}/logs_card/synthetic/no_calib/clip/clip.txt"
+        report = run_tool(["-m", "mast3r_slam_torch.tools.analyze_drive",
+                           f"{tmp}/diag.jsonl", clip, "--est", est],
+                          TOOL_TIMEOUT_S, "analyze_drive")
+        lines = report.splitlines()
+        if not lines or "diag rows" not in lines[0] or \
+                "final keyframe poses vs GT (post-BA):" not in lines:
+            raise SystemExit("analyze_drive printed no report")
+        out["analyze_drive_lines"] = len(lines)
+        print(f"analyze_drive on the card run's --diag-out: {len(lines)} "
+              f"lines, {lines[0]}; "
+              + "; ".join(ln.strip() for ln in lines
+                          if ln.startswith(("frames:", "keyframe "))))
+        t0 = time.perf_counter()
+        text = run_tool(["-m", "mast3r_slam_torch.tools.segmented_drive",
+                         "--dataset", clip, "--config",
+                         "config/eval_no_calib.yaml", "--segment",
+                         str(EVAL_SEGMENT), "--save-as", f"{tmp}/seg",
+                         "--rates-out", f"{tmp}/rates_seg.json", "--oracle"],
+                        3 * TOOL_TIMEOUT_S, "segmented_drive")
+        out["segmented_drive_s"] = time.perf_counter() - t0
+        seg = np.loadtxt(f"{tmp}/seg/clip.txt", ndmin=2)
+        one = trajs["card"]
+        same_rows = seg.shape == one.shape and \
+            np.array_equal(seg[:, 0], one[:, 0])
+        err = float(np.abs(seg - one).max()) if same_rows else float("inf")
+        with open(f"{tmp}/seg/clip.txt") as f, open(est) as g:
+            bitwise = f.read() == g.read()
+        out.update(segments=text.count("[segment "),
+                   segmented_pose_max_abs_diff=err,
+                   segmented_bitwise=bitwise)
+        print(f"segmented_drive on the card: {out['segments']} segments, "
+              f"{len(seg)} keyframes against {len(one)} in one process, "
+              f"trajectory {err:.3g} apart (limit {ORACLE_RESUME_ATOL}), "
+              f"file byte for byte {out['segmented_bitwise']}; "
+              f"{out['segmented_drive_s']:.1f} s [{card}]")
+        if out["segments"] != 3 or not err <= ORACLE_RESUME_ATOL:
+            raise SystemExit("segmented_drive differs from the one-process "
+                             "run")
+    return out
+
+
 def device_busy(fn, top=12):
     """Sum of the device kernels' times in one traced call of ``fn``
     (``torch.profiler``), printing the ``top`` kernels by time, and the
@@ -3219,6 +3565,7 @@ def main(argv=None):
     # no phase can hang: past the deadline the tracebacks are printed and
     # the process exits 1
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    _DEADLINE[0] = time.monotonic() + WATCHDOG_S
     from mast3r_slam_torch import _build
 
     # f32 products stay f32 on the card (no TF32), in every phase
@@ -3280,8 +3627,16 @@ def main(argv=None):
                                     peak_bw, card)
     int8.update(check_int8_local_head(eng_q, eng_l, frames, card))
     eng_tp = build_tp_engine(sd, mcfg)
-    del sd, eng_l
-    torch.cuda.empty_cache()
+    # the same weights as a published checkpoint file, loaded through
+    # main_torch.load_model; then main_torch.main from a PNG clip with it
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint = check_checkpoint(engine, sd, mcfg, frames,
+                                      f"{tmp}/checkpoint.pth", card)
+        del sd, eng_l
+        torch.cuda.empty_cache()
+        cli = drive_cli(f"{tmp}/checkpoint.pth", frames[:N_FRAMES], tmp,
+                        card)
+    checkpoint.update(card=card)
     tp = check_tp(engine, eng_tp, mcfg, frames, peak_flops, peak_bw, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, system, record, timings = drive_frontend(
@@ -3300,6 +3655,7 @@ def main(argv=None):
     bf16_drive = {"timings": timings,
                   "kf": system.arena.T_WC[:system.arena.n_size].cpu(),
                   "last": system.last_T_WC.cpu()}
+    cli = compare_cli_drive(cli, launches, bf16_drive, card)
     del system, record
     torch.cuda.empty_cache()
     # the same frames inline, in turns with a second threaded drive
@@ -3397,15 +3753,17 @@ def main(argv=None):
     ate["threaded"] = drive_oracle_threaded(card)
     state.update(drive_oracle_state(card))
     multi["backend_device"].update(drive_oracle_backend_device(card))
+    tools = check_eval_tools(card)
 
     # the main path's launches: each drive's, counted from 0 over its own
     # run
     kinds = ("attention", "gn_accumulate", "gn_solve", "pack_rows")
     drives = {"production": launches, "retrieval": launches_retr,
               "int8": launches_int8, "tp": launches_tp,
-              "backend_device": launches_bdev, "viewer": launches_viewer}
+              "backend_device": launches_bdev, "viewer": launches_viewer,
+              "cli": cli["launches"]}
     by_drive = {k: {d: n[k] for d, n in drives.items()} for k in kinds}
-    for d in ("retrieval", "int8", "tp", "backend_device", "viewer"):
+    for d in ("retrieval", "int8", "tp", "backend_device", "viewer", "cli"):
         if not all(drives[d][k] > 0
                    for k in ("attention", "gn_solve", "pack_rows")):
             raise SystemExit(f"a kernel of the main path was not launched "
@@ -3453,6 +3811,9 @@ def main(argv=None):
     print(f"multi-GPU: {json.dumps(multi)}")
     print(f"viewer: {json.dumps(viewer)}")
     print(f"state: {json.dumps(state)}")
+    print(f"checkpoint: {json.dumps(checkpoint)}")
+    print(f"CLI drive: {json.dumps(cli)}")
+    print(f"eval tools: {json.dumps(tools)}")
     print(f"production drive, threaded, run 2, launches: "
           f"{json.dumps(launches_again)}")
     print(json.dumps({"kernels": kernels}))

@@ -65,8 +65,8 @@ def parse_args(argv=None):
                    default="checkpoints/"
                            "MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric"
                            ".pth",
-                   help="torch state dict of the ViT-L network, loaded "
-                        "strictly")
+                   help="MASt3R ViT-L checkpoint (the published file, or "
+                        "a bare state dict), loaded strictly")
     p.add_argument("--tiny-model", action="store_true",
                    help="random tiny model (plumbing smoke runs only)")
     p.add_argument("--oracle", action="store_true",
@@ -141,10 +141,12 @@ def parse_args(argv=None):
 
 def load_model(args):
     """The network of ``--tiny-model`` (seeded random weights) or the ViT-L
-    one with ``--checkpoint`` loaded strictly; bf16 heads unless
-    ``--fp32-head`` (main.py:128-130)."""
+    one with the ``--checkpoint`` file loaded strictly
+    (``models/convert.py::load_checkpoint``: a published checkpoint or a
+    bare state dict); bf16 heads unless ``--fp32-head`` (main.py:123-160)."""
     import torch
 
+    from mast3r_slam_torch.models.convert import load_checkpoint
     from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
 
     head_dtype = torch.float32 if args.fp32_head else torch.bfloat16
@@ -156,10 +158,8 @@ def load_model(args):
         sys.exit(f"checkpoint not found: {ckpt}\n"
                  "Put the MASt3R ViT-L state dict there, or pass "
                  "--tiny-model or --oracle for a run without weights.")
-    model = MASt3R(MASt3RConfig.vit_large(head_dtype=head_dtype))
-    sd = torch.load(ckpt, map_location="cpu", weights_only=True)
-    model.load_state_dict(sd.get("model", sd), strict=True)
-    return model
+    return load_checkpoint(
+        MASt3R(MASt3RConfig.vit_large(head_dtype=head_dtype)), ckpt)
 
 
 def wait_for_step(viewer):

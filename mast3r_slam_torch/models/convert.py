@@ -15,9 +15,16 @@ JAX ``MASt3R`` into a state dict keyed like the published checkpoint, which
 
 ``quant_params_from_jax`` does the same for the int8 weight trees of the
 JAX ``models/quant.py``.
+
+``load_checkpoint`` is the user's route from a published checkpoint file
+(``load_torch_checkpoint`` then ``prepare_checkpoint``) into the port's
+``MASt3R``, the file that JAX reads with its own ``load_torch_checkpoint``
+and ``convert_state_dict``.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -187,15 +194,56 @@ def quant_params_from_jax(qparams) -> dict:
             for name, blk in qparams.items()}
 
 
+def load_torch_checkpoint(path):
+    """A torch checkpoint file -> (state dict, the model's args string)
+    (mast3r_slam_tpu/models/convert.py:272).  A published checkpoint is a
+    dict with the state dict under ``"model"`` and the training run's
+    ``argparse.Namespace`` under ``"args"``, whose ``model`` is the string
+    the reference builds the network from (dust3r/model.py:27-43); a bare
+    state dict is returned as it is, with an empty string.  The Namespace
+    is an arbitrary pickled object, so the file is read with
+    ``weights_only=False``: load only checkpoints from a trusted source."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["model"] if "model" in ckpt else ckpt
+    args = getattr(ckpt.get("args", None), "model", "")
+    return sd, args
+
+
+_LAYER_RN = re.compile(r"^(.*\.scratch)\.layer([1-4])_rn\.weight$")
+
+
 def prepare_checkpoint(sd: dict) -> dict:
     """A published checkpoint's state dict ready for ``load_state_dict``:
     the reference loader's ``dec_blocks2`` duplication rule when the
-    checkpoint has none (convert.py:188-194), and the unused tensors
-    dropped."""
+    checkpoint has none (convert.py:188-194), the DPT's
+    ``scratch.layer_rn.{i}`` aliases of ``scratch.layer{i+1}_rn`` made when
+    absent and required equal when present (convert.py:123-131;
+    ``models/mast3r.py::Scratch`` registers the same convs under both
+    names), and the unused tensors dropped.  A key left over still fails the strict load,
+    as JAX's ``convert_state_dict(strict=True)`` fails."""
     out = {k: v for k, v in sd.items()
            if not any(k == a or k.startswith(a + ".") for a in ALLOWED_UNUSED)}
     if not any(k.startswith("dec_blocks2.") for k in out):
         for k in list(out):
             if k.startswith("dec_blocks."):
                 out[k.replace("dec_blocks.", "dec_blocks2.", 1)] = out[k]
+    for k in list(out):
+        m = _LAYER_RN.match(k)
+        if m is None:
+            continue
+        alias = f"{m[1]}.layer_rn.{int(m[2]) - 1}.weight"
+        if alias not in out:
+            out[alias] = out[k]
+        elif not torch.equal(out[alias], out[k]):
+            raise ValueError(f"{alias} is not an alias of layer{m[2]}_rn")
     return out
+
+
+def load_checkpoint(model, path):
+    """The checkpoint file ``path`` (published layout or a bare state dict)
+    loaded strictly into the port's ``MASt3R`` ``model``:
+    ``load_torch_checkpoint``, ``prepare_checkpoint``, then
+    ``load_state_dict(strict=True)``.  Returns the model."""
+    sd, _ = load_torch_checkpoint(path)
+    model.load_state_dict(prepare_checkpoint(sd), strict=True)
+    return model

@@ -4,8 +4,8 @@ Mirrors ``mast3r_slam_tpu/models/mast3r.py`` (CroCo ViT encoder, dual
 cross-attention decoder, DPT pts3d head, catMLP local-feature head).  Module
 attributes carry the published checkpoint's key names
 (``enc_blocks.{i}.attn.qkv``, ``downstream_head1.dpt.*``, ...), so a real
-``MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth`` loads with
-``load_state_dict`` after ``convert.prepare_checkpoint``.
+``MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth`` loads strictly
+through ``convert.load_checkpoint``.
 
 Precision follows the JAX package: the trunk computes in ``cfg.dtype``
 (bf16) with f32 LayerNorm; the DPT and catMLP heads compute in
