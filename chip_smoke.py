@@ -98,7 +98,12 @@ call.  Then it drives the port as a user would:
   ``eval_protocol`` over it on the card and on the CPU (ATE within the
   oracle's card-against-CPU bound), ``analyze_drive`` on the card run's
   ``--diag-out``, and ``segmented_drive`` in 3 segments on the card against
-  the one-process run.
+  the one-process run;
+* the tracked-FPS benchmark, ``bench_torch.py`` (``tools/bench.py``) as a
+  process with 4 calls a stage: its record must carry ``bench.py``'s keys
+  and ``drive_tracked_frame``, positive stages and a headline that is the
+  composition of its printed stages and rates, and the process must have
+  launched kernels A, C and ``gn_solve``.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 Exits non-zero, printing no result, when any phase fails, when the whole
@@ -141,9 +146,6 @@ IMG_HW = (384, 512)
 # codebook's 64k words)
 N_FRAMES_LOOP_OUT, LOOP_SHIFT, LOOP_TEXTURE = 9, 48, 0.7
 CODEBOOK_WORDS = 65536
-# the drive's clip: frames, pixels between consecutive frames, and the share
-# of blurred noise in its image (testing.make_clip)
-N_FRAMES, CLIP_SHIFT, CLIP_TEXTURE = 6, 32, 0.5
 N_FRAMES_REFERENCE_EXACT = 6
 # ATE limits of the oracle drives: those of tests/test_pipeline.py; and the
 # card's oracle ATE against the same drive on the CPU
@@ -208,6 +210,9 @@ VIEWER_CLOUD_RTOL, VIEWER_SNAPSHOT_AGREE = 1e-5, 0.999
 # tests), the protocol frames of each of segmented_drive's 3 segments, and
 # the longest one tool's process may take
 EVAL_CLIP, EVAL_SEGMENT, TOOL_TIMEOUT_S = (48, 48, 64), 8, 240
+# the benchmark's process (bench_torch.py): calls per stage (its default is
+# 16; 4 keep the phase inside the script's time) and its deadline
+BENCH_CHAIN, BENCH_TIMEOUT_S = 4, 420
 
 
 def card_info():
@@ -1167,17 +1172,12 @@ def build_engine(seed):
     Returns the engine, the configuration and the f32 state dict."""
     import torch
 
-    from mast3r_slam_torch.inference import InferenceEngine
-    from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
-    from mast3r_slam_torch.testing import condition_for_tracking
+    from mast3r_slam_torch.models.mast3r import MASt3RConfig
+    from mast3r_slam_torch.testing import build_seeded_engine
 
     mcfg = MASt3RConfig.vit_large(head_dtype=torch.bfloat16)
-    torch.manual_seed(seed)
-    model = MASt3R(mcfg)
-    sd = condition_for_tracking(model.state_dict(), mcfg.patch_size,
-                                mcfg.local_feat_dim)
-    model.load_state_dict(sd)
-    return InferenceEngine(model, IMG_HW, device="cuda"), mcfg, sd
+    engine, sd = build_seeded_engine(mcfg, IMG_HW, seed, device="cuda")
+    return engine, mcfg, sd
 
 
 def drive_frontend(engine, mcfg, cfg, frames, card, label, state_out=None,
@@ -2873,7 +2873,7 @@ def multi_card_main(args, cards, peak_flops, peak_bw, card):
     processes; the oracle drive with the backend on card 1."""
     import torch
 
-    from mast3r_slam_torch.testing import make_clip
+    from mast3r_slam_torch.testing import production_clip
     from mast3r_slam_torch.utils.config import load_config
 
     cfg = load_config("config/base.yaml")
@@ -2881,13 +2881,13 @@ def multi_card_main(args, cards, peak_flops, peak_bw, card):
     cfg_inline["single_thread"] = True
     res = {"kernels_off_current": check_kernels_off_current(cards, card)}
     engine, mcfg, sd = build_engine(args.seed)
-    frames = make_clip(args.seed, N_FRAMES + 1, IMG_HW, CLIP_SHIFT,
-                       CLIP_TEXTURE)
+    # the drives' frames and the one after the last (the pair checks')
+    frames = production_clip(args.seed, IMG_HW)
     eng_tp = build_tp_engine(sd, mcfg, devices=cards[:2])
     del sd
     tp = check_tp(engine, eng_tp, mcfg, frames, peak_flops, peak_bw, card)
     launches_tp, system_tp, _, tp["drive"] = drive_frontend(
-        eng_tp, mcfg, cfg, frames[:N_FRAMES], card,
+        eng_tp, mcfg, cfg, frames[:-1], card,
         "tensor-parallel drive over cards 0 and 1")
     del system_tp, eng_tp
     torch.cuda.empty_cache()
@@ -2895,7 +2895,7 @@ def multi_card_main(args, cards, peak_flops, peak_bw, card):
     record = None
     for mode in ("backend_device", "threaded", "threaded", "backend_device"):
         launches_b, system_b, rec, t = drive_frontend(
-            engine, mcfg, cfg, frames[:N_FRAMES], card,
+            engine, mcfg, cfg, frames[:-1], card,
             f"production drive, {mode}, run {len(runs[mode]) + 1}",
             backend_device=1 if mode == "backend_device" else None)
         if mode == "backend_device":
@@ -2911,7 +2911,7 @@ def multi_card_main(args, cards, peak_flops, peak_bw, card):
     res["backend_device"]["mirror_rows_copied"] = [
         t["mirror_rows_copied"] for t in runs["backend_device"]]
     _, system_i, _, t_inline = drive_frontend(
-        engine, mcfg, cfg_inline, frames[:N_FRAMES], card,
+        engine, mcfg, cfg_inline, frames[:-1], card,
         "production drive, inline, backend on card 1", backend_device=1)
     res["backend_device"]["inline"] = t_inline
     del system_i
@@ -3391,11 +3391,12 @@ def compare_cli_drive(cli, launches, bf16_drive, card):
     return cli
 
 
-def run_tool(argv, timeout, label):
+def run_tool(argv, timeout, label, env=None):
     """``python`` with ``argv`` from the repository root, in a session of
     its own so that a timeout kills its whole process tree; fails the run
     on a non-zero exit or a timeout.  The timeout ends before the script's
-    watchdog would, which could not stop the tree.  Returns its output."""
+    watchdog would, which could not stop the tree.  ``env`` replaces the
+    environment.  Returns its output (standard output and error)."""
     import os
     import signal
 
@@ -3404,7 +3405,7 @@ def run_tool(argv, timeout, label):
         raise SystemExit(f"{label}: no time left before the watchdog")
     proc = subprocess.Popen([sys.executable, *argv], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+                            start_new_session=True, env=env)
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -3524,28 +3525,76 @@ def check_eval_tools(card):
     return out
 
 
-def device_busy(fn, top=12):
-    """Sum of the device kernels' times in one traced call of ``fn``
-    (``torch.profiler``), printing the ``top`` kernels by time, and the
-    number of kernels launched.  Kernels of one stream do not overlap, so
-    the sum is the busy time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def check_bench(card):
+    """``python3 bench_torch.py`` (the tracked-FPS benchmark, ViT-L at
+    384x512 on the card) as a process under a deadline, with
+    ``BENCH_CHAIN`` calls a stage.  Its last line must hold
+    ``tools.bench.check_record``: ``bench.py``'s keys and
+    ``drive_tracked_frame``, every stage positive, the tracked rate
+    1000 / (encode + track), ``vs_baseline`` value / 15 and ``value`` the
+    composition of the printed stages and rates; the drive must have
+    tracked; and its log's launch line must show kernels A, C and
+    ``gn_solve`` launched in that process.  Returns the record, the
+    launches and the stages' host, CUDA-event and busy times."""
+    import os
+    import re
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    if not rows:
+    from mast3r_slam_torch.tools.bench import check_record
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["BENCH_CHAIN"] = str(BENCH_CHAIN)
+    t0 = time.perf_counter()
+    text = run_tool(["bench_torch.py"], BENCH_TIMEOUT_S, "bench_torch",
+                    env=env)
+    seconds = time.perf_counter() - t0
+    lines = text.splitlines()
+    records = [ln for ln in lines if ln.startswith('{"metric"')]
+    launch = [re.fullmatch(r"bench_torch: launches attention (\d+) pack "
+                           r"(\d+) gn_solve (\d+) gn_accumulate (\d+)",
+                           ln) for ln in lines]
+    launch = [m for m in launch if m]
+    stages = [ln for ln in lines if ln.startswith("stages (host ms")]
+    if len(records) != 1 or len(launch) != 1 or len(stages) != 1:
+        print(text)
+        raise SystemExit("bench_torch: no single record, launch line and "
+                         "stage line")
+    rec = json.loads(records[0])
+    try:
+        check_record(rec)
+    except ValueError as e:
+        print(text)
+        raise SystemExit(f"bench_torch: {e}")
+    if rec["breakdown_ms"]["drive_tracked_frame"] is None:
+        raise SystemExit("bench_torch: the drive tracked no frame")
+    n = dict(zip(("attention", "pack_rows", "gn_solve", "gn_accumulate"),
+                 map(int, launch[0].groups())))
+    if not all(n[k] > 0 for k in ("attention", "pack_rows", "gn_solve")):
+        raise SystemExit(f"bench_torch: a kernel of the main path was not "
+                         f"launched in the bench process: {n}")
+    for ln in lines:
+        if ln.startswith(("frame:", "protocol:", "  threaded-1chip",
+                          "  drive (", "  2chip")):
+            print(ln)
+    print(f"bench_torch: launches {n}, {seconds:.1f} s, BENCH_CHAIN "
+          f"{BENCH_CHAIN} [{card}]")
+    return {"record": rec, "launches": n, "seconds": seconds,
+            "stages": json.loads(stages[0].split(": ", 1)[1])}
+
+
+def device_busy(fn, top=12):
+    """``tools.bench.device_busy`` on the card, printing the ``top``
+    kernels by time: the summed device time of one traced call of ``fn``
+    and the number of kernels launched.  Fails when the profiler sees no
+    device time."""
+    import torch
+
+    from mast3r_slam_torch.tools.bench import device_busy as busy
+
+    ms, n = busy(fn, torch.device("cuda", torch.cuda.current_device()),
+                 top=top, out=sys.stdout)
+    if ms is None:
         raise SystemExit("the profiler saw no device time")
-    for ms, n, key in rows[:top]:
-        print(f"  kernel {ms:8.3f} ms {n:5d}x {key[:90]}")
-    return sum(r[0] for r in rows), sum(r[1] for r in rows)
+    return ms, n
 
 
 def main(argv=None):
@@ -3599,7 +3648,7 @@ def main(argv=None):
         return rc
 
     from mast3r_slam_torch.ops.matching import MatchingConfig
-    from mast3r_slam_torch.testing import make_clip
+    from mast3r_slam_torch.testing import make_clip, production_clip
     from mast3r_slam_torch.tracker import TrackerConfig
     from mast3r_slam_torch.utils.config import (apply_reference_exact,
                                                 load_config)
@@ -3620,8 +3669,8 @@ def main(argv=None):
     check_small_model()
 
     engine, mcfg, sd = build_engine(args.seed)
-    frames = make_clip(args.seed, N_FRAMES + 1, IMG_HW, CLIP_SHIFT,
-                       CLIP_TEXTURE)
+    # the drives' frames and the one after the last (the pair checks')
+    frames = production_clip(args.seed, IMG_HW)
     heads = check_heads(engine, sd, frames, card)
     eng_q, eng_l, int8 = check_int8(engine, sd, mcfg, frames, peak_flops,
                                     peak_bw, card)
@@ -3634,13 +3683,13 @@ def main(argv=None):
                                       f"{tmp}/checkpoint.pth", card)
         del sd, eng_l
         torch.cuda.empty_cache()
-        cli = drive_cli(f"{tmp}/checkpoint.pth", frames[:N_FRAMES], tmp,
+        cli = drive_cli(f"{tmp}/checkpoint.pth", frames[:-1], tmp,
                         card)
     checkpoint.update(card=card)
     tp = check_tp(engine, eng_tp, mcfg, frames, peak_flops, peak_bw, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, system, record, timings = drive_frontend(
-            engine, mcfg, cfg, frames[:N_FRAMES], card, "production drive",
+            engine, mcfg, cfg, frames[:-1], card, "production drive",
             state_out=f"{tmp}/state.npz")
         state = check_state(system, engine, f"{tmp}/state.npz",
                             timings.pop("state_save_s"), card)
@@ -3664,7 +3713,7 @@ def main(argv=None):
     for mode, c in (("inline", cfg_inline), ("inline", cfg_inline),
                     ("threaded", cfg)):
         launches_again, system_again, _, t = drive_frontend(
-            engine, mcfg, c, frames[:N_FRAMES], card,
+            engine, mcfg, c, frames[:-1], card,
             f"production drive, {mode}, run {len(runs[mode]) + 1}")
         runs[mode].append(t)
         del system_again
@@ -3673,7 +3722,7 @@ def main(argv=None):
     # the same frames through the int8 encoder (main_quantized_torch.py),
     # threaded as the production drive
     launches_int8, system_int8, _, timings_int8 = drive_frontend(
-        eng_q, mcfg, cfg, frames[:N_FRAMES], card, "int8 drive")
+        eng_q, mcfg, cfg, frames[:-1], card, "int8 drive")
     int8["drive"] = timings_int8
     int8["drive"].update(compare_int8_drive(bf16_drive, {
         "timings": timings_int8,
@@ -3684,7 +3733,7 @@ def main(argv=None):
     # the same frames through the engine split over two entries of the card
     # (--tp 2), threaded
     launches_tp, system_tp, _, tp["drive"] = drive_frontend(
-        eng_tp, mcfg, cfg, frames[:N_FRAMES], card, "tensor-parallel drive")
+        eng_tp, mcfg, cfg, frames[:-1], card, "tensor-parallel drive")
     del system_tp, eng_tp
     torch.cuda.empty_cache()
     # the same frames threaded with the backend on device 0 (its mirror
@@ -3693,7 +3742,7 @@ def main(argv=None):
     bdev_runs = {"backend_device": [], "threaded": []}
     for mode in ("backend_device", "threaded", "threaded", "backend_device"):
         n_launch, system_b, _, t = drive_frontend(
-            engine, mcfg, cfg, frames[:N_FRAMES], card,
+            engine, mcfg, cfg, frames[:-1], card,
             f"production drive, {mode}, run {len(bdev_runs[mode]) + 1}",
             backend_device=0 if mode == "backend_device" else None)
         if mode == "backend_device" and not bdev_runs[mode]:
@@ -3708,7 +3757,7 @@ def main(argv=None):
         t["mirror_rows_copied"] for t in bdev_runs["backend_device"]]
     # the same frames with the live viewer, in turns with the threaded
     # drive without it; pause / step on the oracle clip; img_downsample 2
-    viewer = check_viewer(engine, mcfg, cfg, frames[:N_FRAMES], launches,
+    viewer = check_viewer(engine, mcfg, cfg, frames[:-1], launches,
                           card)
     launches_viewer = viewer.pop("launches")
     viewer.update(check_viewer_pause(card))
@@ -3754,6 +3803,8 @@ def main(argv=None):
     state.update(drive_oracle_state(card))
     multi["backend_device"].update(drive_oracle_backend_device(card))
     tools = check_eval_tools(card)
+    torch.cuda.empty_cache()
+    bench = check_bench(card)
 
     # the main path's launches: each drive's, counted from 0 over its own
     # run
@@ -3762,13 +3813,17 @@ def main(argv=None):
               "int8": launches_int8, "tp": launches_tp,
               "backend_device": launches_bdev, "viewer": launches_viewer,
               "cli": cli["launches"]}
+    # the GN iterations of the drives in this process (the bench process's
+    # track calls each run its cadence's, refused otherwise)
+    gn_iterations = sum(n["gn_iterations"] for n in drives.values())
+    drives["bench"] = bench["launches"]
     by_drive = {k: {d: n[k] for d, n in drives.items()} for k in kinds}
-    for d in ("retrieval", "int8", "tp", "backend_device", "viewer", "cli"):
+    for d in ("retrieval", "int8", "tp", "backend_device", "viewer", "cli",
+              "bench"):
         if not all(drives[d][k] > 0
                    for k in ("attention", "gn_solve", "pack_rows")):
             raise SystemExit(f"a kernel of the main path was not launched "
                              f"by the {d} drive")
-    gn_iterations = sum(n["gn_iterations"] for n in drives.values())
     launches = {k: sum(n[k] for n in drives.values()) for k in kinds}
     kernels = [
         dict(name="attention", route="cuda",
@@ -3814,6 +3869,8 @@ def main(argv=None):
     print(f"checkpoint: {json.dumps(checkpoint)}")
     print(f"CLI drive: {json.dumps(cli)}")
     print(f"eval tools: {json.dumps(tools)}")
+    print(f"bench_torch: {json.dumps(bench['record'])}")
+    print(f"bench_torch stages: {json.dumps(bench['stages'])}")
     print(f"production drive, threaded, run 2, launches: "
           f"{json.dumps(launches_again)}")
     print(json.dumps({"kernels": kernels}))

@@ -27,6 +27,11 @@ from .ops.geometry import get_pixel_coords
 
 # kernel B's sums against its plain version, entry by entry (gn_sums_check)
 GN_RTOL, GN_FLOOR = 1e-4, 1e-5
+# the production drive's clip (chip_smoke.py's drives, bench_torch.py's
+# drive_tracked_frame): frames, pixels between consecutive frames and the
+# share of blurred noise in its image; with the conditioned ViT-L at
+# 384x512 and config/base.yaml it makes two keyframes
+PRODUCTION_CLIP = (6, 32, 0.5)
 
 
 def make_clip(seed: int, n: int, hw, shift: int = 1,
@@ -48,6 +53,13 @@ def make_clip(seed: int, n: int, hw, shift: int = 1,
     img = (255 * (texture * noise + (1 - texture) * ramp)).astype(np.uint8)
     return [np.ascontiguousarray(img[8:8 + h, 8 + shift * i:8 + shift * i + w])
             for i in range(n)]
+
+
+def production_clip(seed: int, hw) -> list[np.ndarray]:
+    """The production drive's ``PRODUCTION_CLIP`` frames and one more, the
+    frame after the drive's last (``make_clip``)."""
+    n, shift, texture = PRODUCTION_CLIP
+    return make_clip(seed, n + 1, hw, shift, texture)
 
 
 def condition_for_tracking(sd: dict, patch_size: int = 16,
@@ -91,6 +103,24 @@ def condition_for_tracking(sd: dict, patch_size: int = 16,
         elif k.startswith("downstream_head1."):
             out["downstream_head2." + k[len("downstream_head1."):]] = out[k]
     return out
+
+
+def build_seeded_engine(mcfg, img_hw, seed: int = 0, device="cuda",
+                        **engine_kw):
+    """The network of ``mcfg`` with the weights of
+    ``torch.manual_seed(seed)``, conditioned so that a clip tracks
+    (``condition_for_tracking``), in an ``InferenceEngine`` at ``img_hw`` on
+    ``device``; ``engine_kw`` go to the engine.  Returns the engine and the
+    conditioned f32 state dict."""
+    from .inference import InferenceEngine
+    from .models.mast3r import MASt3R
+
+    torch.manual_seed(seed)
+    model = MASt3R(mcfg)
+    sd = condition_for_tracking(model.state_dict(), mcfg.patch_size,
+                                mcfg.local_feat_dim)
+    model.load_state_dict(sd)
+    return InferenceEngine(model, img_hw, device=device, **engine_kw), sd
 
 
 def gn_problem(n: int, seed: int, device="cpu"):

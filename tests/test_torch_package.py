@@ -9,10 +9,13 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "mast3r_slam_tpu")
+# the JAX package and its scripts, and the card's smoke script, which no
+# program imports
+FORBIDDEN = ("jax", "jaxlib", "flax", "mast3r_slam_tpu", "scripts",
+             "chip_smoke")
 PORT_FILES = sorted((ROOT / "mast3r_slam_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "main_torch.py",
-    ROOT / "main_quantized_torch.py"]
+    ROOT / "main_quantized_torch.py", ROOT / "bench_torch.py"]
 
 
 def _imported_modules(path):
