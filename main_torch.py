@@ -105,8 +105,9 @@ def parse_args(argv=None):
                    help="where to write the run's protocol rates (the "
                         "rates dict printed at the end, main.py's keys)")
     p.add_argument("--profile", action="store_true",
-                   help="section timers (synchronises the device per "
-                        "section)")
+                   help="record the frame path's spans and print their "
+                        "host-clock times at the end (no device "
+                        "synchronisation: a section's time is the host's)")
     p.add_argument("--profile-blocks", action="store_true",
                    help="after the run, time the network's sub-blocks "
                         "(PatchEmbed / enc attn / enc mlp / dec self + "
@@ -338,7 +339,7 @@ def main(argv=None):
     from mast3r_slam_torch.pipeline import SLAMSystem
     from mast3r_slam_torch.utils.config import (apply_reference_exact,
                                                 load_config)
-    from mast3r_slam_torch.utils.profiler import TimeProfiler
+    from mast3r_slam_torch.utils.profiler import TRACER
 
     device = "cpu" if args.cpu else "cuda"
     config = load_config(args.config)
@@ -425,7 +426,6 @@ def main(argv=None):
         else:
             print("[warn] retrieval checkpoint/codebook not found - "
                   "loop closure and relocalization proposals disabled")
-    profiler = TimeProfiler(enabled=args.profile)
     viewer = None
     if not args.no_viz:
         from mast3r_slam_torch.viz_server import LiveViewer
@@ -434,16 +434,20 @@ def main(argv=None):
         # fails here, with nothing yet to stop
         viewer = LiveViewer(port=args.viz_port)
         print(f"live viewer: http://127.0.0.1:{viewer.port}/")
+    if args.profile:
+        TRACER.reset()
+        TRACER.enable()
     try:
         system = SLAMSystem(config, engine, (h, w), K=K, retrieval=retrieval,
-                            device=device, profiler=profiler,
-                            backend_device=args.backend_device)
+                            device=device, backend_device=args.backend_device)
         if args.resume_state:
             system.load_state(args.resume_state)
             print(f"resumed from {args.resume_state}: "
                   f"{system.arena.n_size} keyframes, mode={system.mode}")
         summary = run(system, dataset, args, viewer=viewer)
     finally:
+        if args.profile:
+            TRACER.disable()
         if viewer is not None:
             viewer.close()
     print(f"done: {summary['frames']} frames in {summary['seconds']:.1f}s "
@@ -471,7 +475,7 @@ def main(argv=None):
     if getattr(dataset, "save_results", True):
         export(system, dataset, args)
     if args.profile:
-        profiler.print_summary()
+        TRACER.print_summary()
     if args.profile_blocks and not (args.oracle or args.tiny_model):
         from mast3r_slam_torch.utils.breakdown import (network_breakdown,
                                                        print_network_summary)

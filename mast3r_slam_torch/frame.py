@@ -14,6 +14,7 @@ import enum
 import torch
 
 from .ops import lie_sim3 as sim3
+from .utils.profiler import TRACER
 
 
 class Mode(enum.Enum):
@@ -84,7 +85,13 @@ def _spherical_to_cartesian(s):
 def update_pointmap(frame: Frame, X, C, mode: FilteringMode,
                     use_median_score: bool = True) -> Frame:
     """Pointmap fusion, all six modes (frame.py:114).  The first-update
-    case is a ``where`` on frame.N, as in JAX."""
+    case is a ``where`` on frame.N, as in JAX.  Span ``frame.fuse``."""
+    with TRACER.span("frame.fuse"):
+        return _fuse(frame, X, C, mode, use_median_score)
+
+
+def _fuse(frame: Frame, X, C, mode: FilteringMode,
+          use_median_score: bool) -> Frame:
     first = frame.N == 0
     one = torch.ones_like(frame.N)
     if mode == FilteringMode.FIRST:

@@ -24,6 +24,7 @@ from .models.mast3r import MASt3R, cast_trunk_params_bf16, postprocess
 from .parallel.mesh import shard_params_tp
 from .ops import lie_sim3 as sim3
 from .ops import matching
+from .utils.profiler import TRACER
 
 
 class InferenceEngine:
@@ -89,12 +90,13 @@ class InferenceEngine:
     @torch.no_grad()
     def encode(self, img):
         """img (B, h, w, 3) -> (feat (B, N, C) f32, pos (B, N, 2))
-        (inference.py:161)."""
-        img = img.to(self.device)
-        if self.qparams is not None:
-            return quant.encode_int8(self.model, self.qparams, img,
-                                     tp=self.qparams_tp)
-        return self.model.encode(img)
+        (inference.py:161).  Span ``inference.encode``."""
+        with TRACER.span("inference.encode"):
+            img = img.to(self.device)
+            if self.qparams is not None:
+                return quant.encode_int8(self.model, self.qparams, img,
+                                         tp=self.qparams_tp)
+            return self.model.encode(img)
 
     def replica(self, device) -> "InferenceEngine":
         """This engine's copy on ``device`` (JAX's params put on the
@@ -124,7 +126,12 @@ class InferenceEngine:
         (encoder, last decoder) tokens, the postprocess.  Returns ((X, C,
         D, Q) for view 1, for view 2), each (B, h, w, ...), (h, w) the
         engine's ``out_hw``: every ``downsample``-th row and column of the
-        heads' output (``_pack``, inference.py:146-157)."""
+        heads' output (``_pack``, inference.py:146-157).  Span
+        ``inference.decode``."""
+        with TRACER.span("inference.decode"):
+            return self._decode_pair(feat1, pos1, feat2, pos2)
+
+    def _decode_pair(self, feat1, pos1, feat2, pos2):
         m = self.model
         if self.qlocal is None:
             res = m.decode_and_head(feat1, pos1, feat2, pos2, self.img_hw)
@@ -161,20 +168,22 @@ class InferenceEngine:
         (1, hw, f) int8 tables ride along for the backend's consecutive
         edge (None when the matcher does not run on int8 tables).  Without
         ``idx_i2j_init`` the matcher starts from the identity on the
-        ``out_hw`` grid of the strided pointmaps (inference.py:186-190)."""
+        ``out_hw`` grid of the strided pointmaps (inference.py:186-190).
+        The quantisation and the matcher are the span ``matching.match``."""
         (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = self.decode_pair(
             frame_feat, frame_pos, kf_feat, kf_pos)
         b = Xii.shape[0]
         desc8 = (None, None)
-        if self.match_cfg.desc_bits == 8 and self.match_cfg.radius > 0:
-            D8f, D8k = matching._q8_pair(
-                Dii, Dji.reshape(b, -1, Dji.shape[-1]),
-                self.match_cfg.desc_prenorm)
-            desc8 = (D8f.reshape(b, -1, D8f.shape[-1]), D8k)
-            Dii, Dji = D8f, D8k.reshape(Dji.shape)
-        idx_i2j, valid_match_j = matching.match(
-            Xii, Xji, Dii, Dji, idx_1_to_2_init=idx_i2j_init,
-            cfg=self.match_cfg)
+        with TRACER.span("matching.match"):
+            if self.match_cfg.desc_bits == 8 and self.match_cfg.radius > 0:
+                D8f, D8k = matching._q8_pair(
+                    Dii, Dji.reshape(b, -1, Dji.shape[-1]),
+                    self.match_cfg.desc_prenorm)
+                desc8 = (D8f.reshape(b, -1, D8f.shape[-1]), D8k)
+                Dii, Dji = D8f, D8k.reshape(Dji.shape)
+            idx_i2j, valid_match_j = matching.match(
+                Xii, Xji, Dii, Dji, idx_1_to_2_init=idx_i2j_init,
+                cfg=self.match_cfg)
 
         def flat(A):
             return A.reshape(b, -1, A.shape[-1] if A.dim() == 4 else 1)

@@ -20,6 +20,7 @@ import math
 import torch
 
 from .. import _build
+from ..utils.profiler import TRACER
 from . import lie_sim3 as sim3
 from .robust import check_convergence, solve_spd_small
 
@@ -297,7 +298,8 @@ def gn_solve(pre: GNPointData, T_init, cfg):
         raise ValueError(f"gn_solve: T_init must be (8,), got "
                          f"{tuple(T_init.shape)}")
     out = gn_solve_launch(pts, T_init, cfg)
-    host = out.cpu()                                        # the one sync
+    with TRACER.span("sync.gn_result"):
+        host = out.cpu()                                    # the one sync
     T = out[:8] if T_init.device == pts.device else host[:8].to(T_init.device)
     return T.to(T_init.dtype), bool(host[8]), int(host[9])
 

@@ -62,7 +62,7 @@ from .parallel.mesh import make_mesh
 from .inference import IMGNORM_MEAN, IMGNORM_STD, resize_img
 from .ops import lie_sim3 as sim3
 from .tracker import FrameTracker, TrackerConfig
-from .utils.profiler import TimeProfiler
+from .utils.profiler import TRACER
 
 
 class NullRetrieval:
@@ -79,14 +79,13 @@ class SLAMSystem:
 
     def __init__(self, cfg: dict, engine, img_hw, K=None, retrieval=None,
                  buffer: int | None = None, device="cuda",
-                 profiler: TimeProfiler | None = None,
                  backend_device: int | None = None):
         """``engine`` is an ``InferenceEngine`` or any object with its
         interface (the oracle harness of ``testing``).  ``K`` (3, 3) selects
         the calibrated mode, as in JAX; ``cfg["use_calib"]`` must agree.
         ``retrieval`` proposes loop-closure and relocalization candidates
-        (``NullRetrieval`` when None).  ``profiler`` times the sections
-        when it is enabled.
+        (``NullRetrieval`` when None).  Its sections are spans of the
+        process-wide ``utils.profiler.TRACER``.
 
         ``backend_device`` (or the cfg key ``backend_device``): the index,
         among ``local_devices`` of this system's device kind, of the device
@@ -123,7 +122,6 @@ class SLAMSystem:
             np.asarray(K), dtype=torch.float32).to(self.device)
         self.tracker = FrameTracker(engine, TrackerConfig.from_config(cfg),
                                     self.K)
-        self.profiler = profiler or TimeProfiler()
         self.diag = False   # per-frame pose in the info dict
         buffer = buffer or int(cfg.get("map", {}).get("buffer", 512))
         self.arena: KeyframeArena = make_arena(
@@ -302,18 +300,21 @@ class SLAMSystem:
     def create_frame(self, i: int, img) -> Frame:
         """Image -> frame on the device with its encoder features
         (pipeline.py:325).  ``img`` is a raw image or a prepared
-        (normed, uimg) pair."""
+        (normed, uimg) pair.  The host's image work and the uploads are
+        two ``pipeline.prepare`` spans, either side of the encode."""
         dev = self.device
-        with self.profiler.timer("create_frame"):
+        with TRACER.span("pipeline.prepare"):
             normed, uimg = img if isinstance(img, tuple) else \
                 self.prepare_image(img)
             device_img = torch.from_numpy(normed)[None].to(dev)
-        with self.profiler.timer("vit_encode"):
-            feat, pos = self.engine.encode(device_img)
+        feat, pos = self.engine.encode(device_img)
         hw = self.img_hw[0] * self.img_hw[1]
+        with TRACER.span("pipeline.prepare"):
+            frame_id = torch.tensor(i, dtype=torch.int32, device=dev)
+            device_uimg = torch.from_numpy(np.ascontiguousarray(uimg)).to(dev)
         return Frame(
-            frame_id=torch.tensor(i, dtype=torch.int32, device=dev),
-            uimg=torch.from_numpy(np.ascontiguousarray(uimg)).to(dev),
+            frame_id=frame_id,
+            uimg=device_uimg,
             T_WC=self.last_T_WC,
             X_canon=torch.zeros((hw, 3), device=dev),
             C=torch.zeros((hw, 1), device=dev),
@@ -325,15 +326,21 @@ class SLAMSystem:
         )
 
     def _mono_frame(self, frame: Frame) -> Frame:
-        with self.profiler.timer("decoder"):
-            X, C = self.engine.inference_mono(frame.feat[None],
-                                              frame.pos[None])
+        X, C = self.engine.inference_mono(frame.feat[None], frame.pos[None])
         return update_pointmap(frame, X[0], C[0], self.filtering_mode,
                                self._median_score)
 
     def process_frame(self, i: int, img: np.ndarray) -> dict:
         """One iteration of the mode machine (pipeline.py:355), with the
-        backend rounds it queues.  Returns step info."""
+        backend rounds it queues.  Returns step info.  Its span
+        ``pipeline.frame`` is keyed by ``i`` and noted with the mode taken
+        (``TRACKING+kf`` for a new keyframe)."""
+        with TRACER.span("pipeline.frame", key=i) as span:
+            info = self._process_frame(i, img)
+            span.note = info["mode"] + ("+kf" if info["new_kf"] else "")
+        return info
+
+    def _process_frame(self, i: int, img: np.ndarray) -> dict:
         frame = self.create_frame(i, img)
         info = {"mode": self.mode.name, "new_kf": False}
 
@@ -350,9 +357,8 @@ class SLAMSystem:
             with self._lock:
                 last = self.arena.n_size - 1
                 kf = arena_get(self.arena, last)
-            with self.profiler.timer("track"):
-                new_kf, frame, kf, try_reloc, reuse = \
-                    self.tracker.track(frame, kf)
+            new_kf, frame, kf, try_reloc, reuse = \
+                self.tracker.track(frame, kf)
             info.update(self.tracker.last_diag)
             if try_reloc:
                 self.mode = Mode.RELOC
@@ -474,7 +480,12 @@ class SLAMSystem:
         consecutive edge (idx-1, idx) and the retrieval's edges, then the
         BA solve, all on one snapshot of the arena.  ``idx`` -1 is a
         relocalization request: the frontend posts one per lost frame, so
-        once one has relocalized the rest are dropped."""
+        once one has relocalized the rest are dropped.  Its span
+        ``pipeline.backend_round`` is keyed by ``idx``."""
+        with TRACER.span("pipeline.backend_round", key=idx):
+            self._round(idx)
+
+    def _round(self, idx: int):
         if idx == -1:
             if self.mode != Mode.RELOC:
                 return
@@ -501,7 +512,7 @@ class SLAMSystem:
                     self._edge_reuse = None
                 else:
                     reuse = None     # a stale bundle of another pair
-            with self.profiler.timer("add_factors"):
+            with TRACER.span("global_opt.add_factors"):
                 self.graph.add_factors(
                     snap, kf_idx, [idx] * len(kf_idx),
                     float(self.cfg["local_opt"]["min_match_frac"]),
@@ -516,8 +527,7 @@ class SLAMSystem:
         """Solve on the snapshot, then write only the optimised non-pinned
         keyframes' poses into the live arena (pipeline.py:573): a keyframe
         the frontend appended meanwhile keeps its pose."""
-        with self.profiler.timer("ba_calib" if self.use_calib else
-                                 "ba_rays"):
+        with TRACER.span("global_opt.solve"):
             res = self.graph.solve_poses(
                 snap, "calib" if self.use_calib else "ray")
             if res is None:
@@ -546,10 +556,11 @@ class SLAMSystem:
         self._arena_append(frame)
         snap = self._snapshot()
         n_kf = snap.n_size
-        success = self.graph.add_factors(
-            snap, [n_kf - 1] * len(kf_idx), kf_idx,
-            float(self.cfg["reloc"]["min_match_frac"]),
-            is_reloc=bool(self.cfg["reloc"]["strict"]))
+        with TRACER.span("global_opt.add_factors"):
+            success = self.graph.add_factors(
+                snap, [n_kf - 1] * len(kf_idx), kf_idx,
+                float(self.cfg["reloc"]["min_match_frac"]),
+                is_reloc=bool(self.cfg["reloc"]["strict"]))
         if success:
             self.retrieval.update(frame, snap, add_after_query=True,
                                   k=retr["k"], min_thresh=retr["min_thresh"])

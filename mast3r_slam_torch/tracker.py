@@ -31,6 +31,7 @@ from .ops.geometry import (
     project_calib,
 )
 from .ops.robust import huber
+from .utils.profiler import TRACER
 
 
 class TrackerConfig(NamedTuple):
@@ -262,13 +263,14 @@ def track_step(engine, frame: Frame, keyframe: Frame, idx_init,
 
     T_WCf, T_WCk = frame.T_WC, keyframe.T_WC
     T_init = sim3.rel(T_WCk, T_WCf)
-    if cfg.use_calib:
-        T_CkCf, ok, gn_iters = opt_pose_calib_sim3(
-            Xf_m, Xk_gn, T_init, Qk, valid_opt.to(Xf_m.dtype), meas_k,
-            valid_meas_k, K, (h, w), cfg)
-    else:
-        T_CkCf, ok, gn_iters = opt_pose_ray_dist_sim3(
-            Xf_m, Xk_gn, T_init, Qk, valid_opt.to(Xf_m.dtype), cfg)
+    with TRACER.span("tracker.gn"):
+        if cfg.use_calib:
+            T_CkCf, ok, gn_iters = opt_pose_calib_sim3(
+                Xf_m, Xk_gn, T_init, Qk, valid_opt.to(Xf_m.dtype), meas_k,
+                valid_meas_k, K, (h, w), cfg)
+        else:
+            T_CkCf, ok, gn_iters = opt_pose_ray_dist_sim3(
+                Xf_m, Xk_gn, T_init, Qk, valid_opt.to(Xf_m.dtype), cfg)
     # normalize: this product is the per-frame pose recursion (tracker.py:557)
     frame = frame.replace(T_WC=sim3.normalize(sim3.mul(T_WCk, T_CkCf)))
 
@@ -310,21 +312,30 @@ class FrameTracker:
         (tracker.py:638).  ``reuse`` = (idx_f2k, valid_match, Qff, Qkf,
         desc8_frame, desc8_kf), the frame -> keyframe direction that the
         backend reuses for the consecutive edge when the frame becomes a
-        keyframe; None when tracking is lost."""
+        keyframe; None when tracking is lost.  Its span is
+        ``tracker.step``; each of its two host reads of the card is a
+        ``sync.kf_decision`` span."""
+        with TRACER.span("tracker.step"):
+            return self._track(frame, keyframe)
+
+    def _track(self, frame: Frame, keyframe: Frame):
         idx_init = self.idx_f2k
         if idx_init is None:
             idx_init = torch.arange(frame.hw,
                                     device=frame.X_canon.device)[None]
         res = track_step(self.engine, frame, keyframe, idx_init, self.cfg,
                          self.K)
-        match_frac = float(res.match_frac)
+        with TRACER.span("sync.kf_decision"):
+            match_frac = float(res.match_frac)
         self.gn_iters_total += res.gn_iters
         self.gn_frames += 1
+        with TRACER.span("sync.kf_decision"):
+            new_kf_metric = float(res.new_kf_metric)
         self.last_diag = {
             "match_frac": match_frac,
             "gn_iters": res.gn_iters,
             "ok": res.ok,
-            "new_kf_metric": float(res.new_kf_metric),
+            "new_kf_metric": new_kf_metric,
         }
         self.idx_f2k = res.idx_f2k
         if match_frac < self.cfg.min_match_frac or not res.ok:

@@ -39,12 +39,20 @@ from mast3r_slam_torch import dataloader as tdl
 from mast3r_slam_torch import evaluate, testing
 from mast3r_slam_torch.pipeline import NullRetrieval, SLAMSystem
 from mast3r_slam_torch.utils.config import load_config
+from mast3r_slam_torch.utils.profiler import TRACER
 
 H, W, N_FRAMES = 48, 64, 16
 POSE_ATOL = 2e-4
 RELOC_POSE_ATOL = 3e-6
 ATE_LIMIT = {False: 0.05, True: 0.1}
 ATE_ATOL = 1e-4
+# the tracer's spans of an oracle run (the oracle engine is no
+# InferenceEngine, so no inference.* span); the eval configs run the
+# backend inline, a relocalization-free clip
+PROFILE_SPANS = ("pipeline.frame", "pipeline.prepare", "tracker.step",
+                 "tracker.gn", "frame.fuse", "sync.kf_decision",
+                 "pipeline.backend_round", "global_opt.add_factors",
+                 "global_opt.solve")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -481,12 +489,21 @@ def test_main_torch_oracle_end_to_end(clip, tmp_path, monkeypatch, capsys,
     # the eval configs subsample the clip by 2
     diag = (logs / "diag.jsonl").read_text().splitlines()
     assert len(diag) == N_FRAMES // sub
-    assert "track" in out and "stats:" in out
+    assert "stats:" in out
     rounds = system.stats["ba_rounds"]
     assert rounds >= 1
     assert f"ba_rounds {rounds} " in out
     assert f"mean_ba_iters {system.ba_iters_total / rounds:.2f}" in out
-    assert "ba_calib" in out if calib else "ba_rays" in out
+    # --profile: the tracer's summary, from its records of the run, one
+    # row per span (count, mean ms, total s), and off again after the run
+    rows = {ln.split()[0]: ln.split()[1:] for ln in out.splitlines()
+            if ln.split() and ln.split()[0] in PROFILE_SPANS}
+    assert set(rows) == set(PROFILE_SPANS), rows
+    assert int(rows["pipeline.frame"][0]) == N_FRAMES // sub
+    assert int(rows["tracker.step"][0]) == system.stats["tracked"]
+    assert int(rows["global_opt.solve"][0]) >= rounds
+    assert "frames (pipeline.frame)" in out
+    assert not TRACER.enabled
     assert "the backend runs inline" not in out   # single_thread: True
 
 
