@@ -71,30 +71,22 @@ def point_gap(T_a, T_b, X) -> float:
     return float(d / torch.clamp(r, min=1e-30))
 
 
-def normalised(img: np.ndarray, device):
-    """A (h, w, 3) uint8 frame as the network's input (1, h, w, 3)."""
-    x = torch.from_numpy(img).to(device).float() * (1.0 / 127.5) - 1.0
-    return x[None]
-
-
 class Reference:
-    """The reference (or the control) network and solver settings of one
-    configuration."""
+    """The reference (or the control) of one configuration: its
+    architecture's network (``net``, from ``arch.reference``, in ``prec``)
+    and the solver settings."""
 
-    def __init__(self, net_cfg: network.NetConfig, sd: dict,
-                 prec: network.Precision, slam_cfg: dict, img_hw, device):
-        self.net = network.build(net_cfg, sd, prec, device)
+    def __init__(self, net, prec: network.Precision, slam_cfg: dict, img_hw):
+        self.net = net
         self.prec = prec
         self.mcfg = MatchCfg.from_dict(slam_cfg["matching"])
         self.tcfg = tracker.TrackCfg.from_dict(slam_cfg)
         self.bcfg = ref_ba.BACfg.from_dict(slam_cfg)
         self.img_hw = tuple(img_hw)
-        self.device = device
 
     def views(self, img_frame, img_kf):
-        f1, p1 = self.net.encode(normalised(img_frame, self.device))
-        f2, p2 = self.net.encode(normalised(img_kf, self.device))
-        return self.net.decode_pair(f1, p1, f2, p2, self.img_hw)
+        """The 8 outputs (``OUTPUTS`` of each view) for two uint8 frames."""
+        return self.net.views(img_frame, img_kf)
 
     def track(self, views, rec):
         return tracker.track(views, rec["kf"], rec["T0"], rec["idx"],

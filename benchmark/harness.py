@@ -5,7 +5,9 @@ benchmark's own tools (``calibrate.py``, the tests) drive the same code.
 Everything that belongs to one configuration, traffic mix, cell or metric
 is a file found by the name ``BENCHMARK.json`` gives it:
 ``configs/<config>.json`` (its ``file``), ``traffic/<traffic>.json``,
-``limits/<workload>.json`` and ``metrics/<metric>.py``.
+``limits/<workload>.json`` and ``metrics/<metric>.py``; and what belongs to
+one network, ``arch/<architecture>.py``, by the name its configuration
+gives.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
+ARCH = BENCH / "arch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "mast3r_slam_tpu")
 
 
@@ -36,6 +39,7 @@ class Cell:
     traffic: dict
     limits: dict | None
     manifest: dict
+    config_file: str | None = None  # as BENCHMARK.json gives it
 
 
 def load_cell(name: str, root: Path = ROOT, need_limits: bool = True) -> Cell:
@@ -53,7 +57,7 @@ def load_cell(name: str, root: Path = ROOT, need_limits: bool = True) -> Cell:
     limits = json.loads(lim_path.read_text()) if lim_path.exists() else None
     if need_limits and limits is None:
         raise SystemExit(f"no limits file for {name}: {lim_path}")
-    return Cell(w, config, traffic, limits, m)
+    return Cell(w, config, traffic, limits, m, cfg_entry["file"])
 
 
 def imported_forbidden() -> list[str]:
@@ -92,14 +96,24 @@ def device_info(torch, chips: int) -> dict:
     return info
 
 
-def net_config(config: dict):
-    from .reference.network import NetConfig
-
-    n = config["network"]
-    return NetConfig(**{f.name: (tuple(n[f.name]) if f.name == "layer_dims"
-                                 else n[f.name])
-                        for f in dataclasses.fields(NetConfig)
-                        if f.name in n})
+def load_arch(config: dict, file: str | None = None):
+    """The module ``arch/<architecture>.py`` that the configuration names
+    (``file``, the configuration's file, for the message when it names
+    none or one that is not there)."""
+    where = file or f"configuration {config.get('name')!r}"
+    name = config.get("architecture")
+    if not isinstance(name, str) or not name.isidentifier():
+        raise SystemExit(f"{where}: no \"architecture\" key naming a file "
+                         f"<architecture>.py of {ARCH} (got {name!r})")
+    path = ARCH / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"{where}: architecture {name!r} has no file "
+                         f"{path}")
+    spec = importlib.util.spec_from_file_location(f"benchmark_arch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def precision(config: dict, which: str):
@@ -108,33 +122,6 @@ def precision(config: dict, which: str):
     from .reference.network import Precision
 
     return Precision(**config["check"][which])
-
-
-def build_engine(config: dict, sd: dict, device):
-    """The port's network with the benchmark's weights, in the engine the
-    system serves it from (the configuration's dtypes and int8 encoder)."""
-    import torch
-    from mast3r_slam_torch.inference import InferenceEngine
-    from mast3r_slam_torch.models.mast3r import MASt3R, MASt3RConfig
-    from mast3r_slam_torch.ops.matching import MatchingConfig
-
-    n = config["network"]
-    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    mcfg = MASt3RConfig(
-        **{k: (tuple(v) if k == "layer_dims" else v) for k, v in n.items()},
-        dtype=dt[config["trunk_dtype"]], head_dtype=dt[config["head_dtype"]])
-    with torch.device("meta"):
-        model = MASt3R(mcfg)
-    model = model.to_empty(device=device)
-    missing, unexpected = model.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if ".scratch.layer_rn." not in k]
-    if missing or unexpected:
-        raise KeyError(f"program network: missing {missing}, unexpected "
-                       f"{unexpected}")
-    return InferenceEngine(
-        model, tuple(config["img_hw"]),
-        match_cfg=MatchingConfig.from_dict(config["slam"]["matching"]),
-        device=device, int8_encoder=bool(config["int8_encoder"]))
 
 
 def samples(traffic: dict, seed: int):
@@ -243,20 +230,21 @@ def spans_by_thread(run: RunData) -> dict:
     return out
 
 
-def check(cell: Cell, capture, clip, device, control: bool = False):
+def check(cell: Cell, arch, capture, clip, device, control: bool = False):
     """The compared numbers (and with ``control`` the control's): the
-    weights made again from the configuration's seed, the reference built
-    from them, the camera's samples held to it."""
+    weights made again from the configuration's seed, the architecture's
+    reference built from them, the camera's samples held to it."""
     from . import correct
-    from .weights import make_state_dict
 
-    c = net_config(cell.config)
-    sd = make_state_dict(c, cell.config["weight_seed"], device)
-    kw = dict(slam_cfg=cell.config["slam"], img_hw=cell.config["img_hw"],
-              device=device)
-    ref = correct.Reference(c, sd, precision(cell.config, "reference"), **kw)
-    ctl = correct.Reference(c, sd, precision(cell.config, "control"),
-                            **kw) if control else None
+    cfg = cell.config
+    sd = arch.make_state_dict(cfg, device)
+
+    def build(which):
+        prec = precision(cfg, which)
+        return correct.Reference(arch.reference(cfg, sd, prec, device), prec,
+                                 cfg["slam"], cfg["img_hw"])
+    ref = build("reference")
+    ctl = build("control") if control else None
     from .reference.network import reference_mode
     with reference_mode():
         return correct.numbers(ref, capture, clip, ctl)
@@ -283,11 +271,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     program's numbers under ``control`` and ``program``)."""
     import torch
 
-    import mast3r_slam_torch.models.mast3r as mast3r_mod
-
     from .drive import Spans
-    from .weights import make_state_dict
 
+    arch = load_arch(cell.config, cell.config_file)
+    log(f"architecture {cell.config['architecture']}: "
+        f"{arch.net_config(cell.config)}")
     cuda = torch.device(device).type == "cuda"
     if cuda:
         # the host work of a frame is one Python thread's; PyTorch's CPU
@@ -300,31 +288,35 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         # load it here, before the backend's thread starts
         a = torch.eye(2, device=device)
         torch.cholesky_solve(a, torch.linalg.cholesky_ex(a)[0])
-    sd = make_state_dict(net_config(cell.config), cell.config["weight_seed"],
-                         device)
-    engine = build_engine(cell.config, sd, device)
+    sd = arch.make_state_dict(cell.config, device)
+    engine = arch.build_program(cell.config, sd, device)
     del sd
     spans = Spans() if traced else None
-    attention = mast3r_mod.flash_attention
+    patched = []        # (module, its flash_attention)
     if traced:
         engine.encode = spans.wrap("engine.encode", engine.encode)
-        mast3r_mod.flash_attention = spans.count_attention(attention)
+        # kernel A's launches, counted where the architecture's modules
+        # call it
+        for name in arch.ATTENTION_MODULES:
+            mod = importlib.import_module(name)
+            patched.append((mod, mod.flash_attention))
+            mod.flash_attention = spans.count_attention(mod.flash_attention)
     held = [engine]
     del engine
     try:
-        return _run(cell, held, seed, seconds, device, t_start, log,
+        return _run(cell, arch, held, seed, seconds, device, t_start, log,
                     control, spans, cuda)
     finally:
-        mast3r_mod.flash_attention = attention
+        for mod, fn in patched:
+            mod.flash_attention = fn
 
 
-def _run(cell, held, seed, seconds, device, t_start, log, control, spans,
-         cuda):
+def _run(cell, arch, held, seed, seconds, device, t_start, log, control,
+         spans, cuda):
     """``held`` = [engine], emptied here so that the engine goes with the
     program's state before the reference runs."""
     import torch
 
-    from . import flops
     from .clips import Clip
     from .drive import Camera, Capture, make_system_factory
     from .trace import DeviceTrace
@@ -367,10 +359,7 @@ def _run(cell, held, seed, seconds, device, t_start, log, control, spans,
     run = RunData(seconds, window, setup_s, frames, attempted, failed,
                   spans.items if spans else None,
                   spans.attn if spans else None, trace,
-                  flops.model_step(cell.config["network"],
-                                   cell.config["img_hw"],
-                                   bool(cell.config["int8_encoder"])),
-                  camera.thread)
+                  arch.model_step(cell.config), camera.thread)
     m = cell.manifest
     metrics = {}
     for e in (m["per_layer"] if spans is not None else m["end_to_end"]):
@@ -392,7 +381,7 @@ def _run(cell, held, seed, seconds, device, t_start, log, control, spans,
     del camera
     if cuda:
         free_cuda(torch)
-    prog, ctrl = check(cell, capture, clip, device, control)
+    prog, ctrl = check(cell, arch, capture, clip, device, control)
     samples_read = {"program": prog.pop("samples"),
                     "control": ctrl.pop("samples")}
     ok, rows = judge(cell, prog)

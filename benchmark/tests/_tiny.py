@@ -1,16 +1,11 @@
-"""A cell at a size the CPU test run holds: the tiny MASt3R, 64 x 96
-frames, small arenas; the configuration, traffic and check
-otherwise those of a committed cell."""
+"""A cell at a size the CPU test run holds: the network and frames its
+architecture's ``tiny`` cuts it to, small arenas; the configuration,
+traffic and check otherwise those of a committed cell."""
 
 from __future__ import annotations
 
 import copy
 import json
-
-TINY_NET = dict(enc_embed_dim=64, enc_depth=2, enc_num_heads=2,
-                dec_embed_dim=48, dec_depth=4, dec_num_heads=2,
-                feature_dim=32, last_dim=16, layer_dims=[16, 24, 32, 48])
-TINY_HW = [64, 96]
 
 
 # the tiny cells: (configuration, traffic mix); the pan-hold mix is no
@@ -19,23 +14,24 @@ CELLS = {"vitl512-bf16.solo-panhold": ("mast3r-vitl512-bf16", "solo-panhold"),
          "vitl512-int8.solo-still": ("mast3r-vitl512-int8", "solo-still")}
 
 
-def tiny_cell(workload="vitl512-bf16.solo-panhold", limits=None):
+def tiny_cell(workload="vitl512-bf16.solo-panhold", limits=None,
+              architecture=None):
+    """The tiny copy of ``workload``; with ``architecture`` its
+    configuration names that architecture in place of its own."""
     from benchmark import harness
 
     config, traffic = CELLS[workload]
+    file = f"benchmark/configs/{config}.json"
+    cfg = json.loads((harness.ROOT / file).read_text())
+    if architecture is not None:
+        cfg["architecture"] = architecture
+    cfg = harness.load_arch(cfg, file).tiny(cfg)
     cell = harness.Cell(
-        dict(name=workload, config=config, traffic=traffic, chips=1),
-        json.loads((harness.BENCH / "configs" / f"{config}.json")
-                   .read_text()),
+        dict(name=workload, config=config, traffic=traffic, chips=1), cfg,
         json.loads((harness.BENCH / "traffic" / f"{traffic}.json")
-                   .read_text()), None, harness.load_manifest())
-    cfg = copy.deepcopy(cell.config)
-    cfg["network"].update(TINY_NET)
-    cfg["img_hw"] = list(TINY_HW)
-    cfg["trunk_dtype"] = cfg["head_dtype"] = "float32"
+                   .read_text()), None, harness.load_manifest(), file)
     cfg["slam"]["map"]["buffer"] = 16
     cfg["slam"]["local_opt"]["max_edges"] = 16
-    cell.config = cfg
     tr = copy.deepcopy(cell.traffic)
     tr["max_rate_fps"] = 20
     if tr["keyframe_every"]:

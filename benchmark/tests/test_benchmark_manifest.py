@@ -39,6 +39,7 @@ def test_every_name_finds_its_files():
     for c in M["configs"]:
         cfg = json.loads((harness.ROOT / c["file"]).read_text())
         assert cfg["name"] == c["name"]
+        harness.load_arch(cfg, c["file"])
         assert c["file"].startswith(tuple(p + "/" for p in M["paths"]))
     for w in M["workloads"]:
         harness.load_cell(w["name"])

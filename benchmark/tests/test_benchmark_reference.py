@@ -13,7 +13,6 @@ from benchmark.reference import network
 from benchmark.reference.ba import BACfg, solve_poses
 from benchmark.reference.matching import MatchCfg, match, q8
 from benchmark.tests._tiny import tiny_cell
-from benchmark.weights import make_state_dict
 
 
 @pytest.fixture(scope="module")
@@ -21,18 +20,24 @@ def tiny():
     torch.set_num_threads(2)
     cell = tiny_cell()
     cfg = cell.config
-    c = harness.net_config(cfg)
-    sd = make_state_dict(c, cfg["weight_seed"], "cpu")
-    engine = harness.build_engine(cfg, sd, "cpu")
-    ref = correct.Reference(c, sd, network.Precision(), cfg["slam"],
-                            cfg["img_hw"], "cpu")
+    arch = harness.load_arch(cfg)
+    sd = arch.make_state_dict(cfg, "cpu")
+    engine = arch.build_program(cfg, sd, "cpu")
+    prec = network.Precision()
+    ref = correct.Reference(arch.reference(cfg, sd, prec, "cpu"), prec,
+                            cfg["slam"], cfg["img_hw"])
     clip = Clip(cell.traffic, 17, cfg["img_hw"], 2.0)
     return cell, engine, ref, clip
 
 
 def test_network_outputs_match(tiny):
     cell, engine, ref, clip = tiny
-    imgs = [correct.normalised(clip.frame(t), "cpu") for t in (1, 0)]
+    # each side normalises the uint8 frames itself: the program as its
+    # system prepares a frame
+    system = _system(cell, engine)
+    imgs = [torch.from_numpy(system.prepare_image(clip.frame(t))[0])[None]
+            for t in (1, 0)]
+    system.terminate()
     (f1, p1), (f2, p2) = (engine.encode(x) for x in imgs)
     prog = engine.decode_pair(f1, p1, f2, p2)
     with network.reference_mode():

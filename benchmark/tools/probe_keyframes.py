@@ -36,7 +36,6 @@ def main(argv=None):
     from benchmark import harness
     from benchmark.clips import stream_rng, texture
     from benchmark.drive import make_system_factory
-    from benchmark.weights import make_state_dict
 
     harness.cache_dirs()
     cell = harness.load_cell(args.workload, need_limits=False)
@@ -47,9 +46,9 @@ def main(argv=None):
     harness.device_info(torch, 1)
     from mast3r_slam_torch import _build
     _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
-    sd = make_state_dict(harness.net_config(cell.config),
-                         cell.config["weight_seed"], "cuda")
-    engine = harness.build_engine(cell.config, sd, "cuda")
+    arch = harness.load_arch(cell.config, cell.config_file)
+    sd = arch.make_state_dict(cell.config, "cuda")
+    engine = arch.build_program(cell.config, sd, "cuda")
     make = make_system_factory(cell.config["slam"], engine,
                                cell.config["img_hw"])
     offsets = [tuple(int(v) for v in o.split(":"))
