@@ -1,4 +1,5 @@
-"""Inference adapters around the MASt3R network.
+"""Inference adapters around the two-view network: MASt3R, or VGGT-1B
+(``models/vggt.py``) through the same entry points.
 
 Mirrors ``mast3r_slam_tpu/inference.py``: encode (bf16, f32 or int8), the
 asymmetric two-view decode with both heads (the local-feature MLPs in int8
@@ -20,7 +21,7 @@ import torch
 
 from .device import resolve_device
 from .models import quant
-from .models.mast3r import MASt3R, cast_trunk_params_bf16, postprocess
+from .models.mast3r import MASt3R, postprocess
 from .parallel.mesh import shard_params_tp
 from .ops import lie_sim3 as sim3
 from .ops import matching
@@ -47,7 +48,18 @@ class InferenceEngine:
         its ``H / n_model`` heads; the model's other weights stay on
         ``device``, where the partial sums are reduced.  With
         ``int8_encoder`` the whole weights are quantised and their codes
-        split (``quant.shard_qparams_tp``)."""
+        split (``quant.shard_qparams_tp``).
+
+        Another network (``models.vggt.VGGT``) is served through the same
+        ``encode``, ``decode_pair`` and ``inference_mono``; the int8 paths
+        and the tensor-parallel path are MASt3R's, and asking for them with
+        another network raises."""
+        if not isinstance(model, MASt3R) and (
+                int8_encoder or int8_local_head or (
+                    mesh is not None and mesh.shape["model"] > 1)):
+            raise ValueError("InferenceEngine: the int8 encoder, the int8 "
+                             "local head and tensor parallelism are "
+                             "MASt3R's; this network runs without them")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 heads (``--fp32-head``, the reference's autocast policy):
@@ -58,8 +70,8 @@ class InferenceEngine:
         if model.cfg.dtype == torch.bfloat16:
             # identical bits, half the weight bytes; the head weights too
             # when the heads compute in bf16 (inference.py:55-63)
-            cast_trunk_params_bf16(
-                model, head_bf16=model.cfg.head_dtype == torch.bfloat16)
+            model.cast_params_bf16(
+                head_bf16=model.cfg.head_dtype == torch.bfloat16)
         self.model = model.to(self.device).eval()
         # quantised from the cast weights, as JAX quantises after its cast
         self.qparams = quant.quantize_encoder_params(self.model) \
@@ -143,16 +155,23 @@ class InferenceEngine:
                     self.img_hw, m.cfg)
                 res.append(postprocess(m.head_dpt(n, toks, self.img_hw),
                                        local, m.cfg))
-        ds = self.downsample
-        return tuple(tuple(A if ds == 1 else A[:, ::ds, ::ds].contiguous()
-                           for A in (r["pts3d"], r["conf"], r["desc"],
-                                     r["desc_conf"]))
+        return tuple(tuple(self._strided(r[k]) for k in
+                           ("pts3d", "conf", "desc", "desc_conf"))
                      for r in res)
 
+    def _strided(self, A):
+        ds = self.downsample
+        return A if ds == 1 else A[:, ::ds, ::ds].contiguous()
+
+    @torch.no_grad()
     def inference_mono(self, feat, pos):
-        """Self-pair decode (inference.py:170).  Returns Xii (1, hw, 3),
-        Cii (1, hw, 1)."""
-        (X, C, _, _), _ = self.decode_pair(feat, pos, feat, pos)
+        """The frame's own pointmap (inference.py:170): the network's
+        ``decode_mono`` (MASt3R's view 1 of the frame paired with itself,
+        VGGT's frame alone).  Returns Xii (1, hw, 3), Cii (1, hw, 1).
+        Span ``inference.decode``."""
+        with TRACER.span("inference.decode"):
+            r = self.model.decode_mono(feat, pos, self.img_hw)
+        X, C = self._strided(r["pts3d"]), self._strided(r["conf"])
         b = X.shape[0]
         return X.reshape(b, -1, 3), C.reshape(b, -1, 1)
 

@@ -452,11 +452,14 @@ class FeatureFusionBlock(nn.Module):
         self.resConfUnit2 = ResidualConvUnit(features, dtype)
         self.out_conv = Conv2d(features, features, 1, compute_dtype=dtype)
 
-    def forward(self, x, skip=None):
+    def forward(self, x, skip=None, size=None):
+        """The fused map resized to ``size`` (out_h, out_w), twice the
+        input's by default, before ``out_conv``."""
         if skip is not None:
             x = x + self.resConfUnit1(skip)
         x = self.resConfUnit2(x)
-        x = bilinear_resize_align_corners(x, 2 * x.shape[2], 2 * x.shape[3])
+        out_h, out_w = size or (2 * x.shape[2], 2 * x.shape[3])
+        x = bilinear_resize_align_corners(x, out_h, out_w)
         return self.out_conv(x)
 
 
@@ -654,6 +657,15 @@ class MASt3R(nn.Module):
         """Decoder + both heads (mast3r.py:530)."""
         d1, d2 = self.decode(f1, pos1, f2, pos2)
         return self.head(1, d1, img_hw), self.head(2, d2, img_hw)
+
+    def decode_mono(self, f, pos, img_hw):
+        """The frame's own pointmap: view 1 of the frame paired with itself
+        (``mast3r_inference_mono``, inference.py:170)."""
+        return self.decode_and_head(f, pos, f, pos, img_hw)[0]
+
+    def cast_params_bf16(self, head_bf16: bool = False) -> "MASt3R":
+        """``cast_trunk_params_bf16`` of this model."""
+        return cast_trunk_params_bf16(self, head_bf16)
 
     def forward(self, img1, img2):
         f1, pos1 = self.encode(img1)

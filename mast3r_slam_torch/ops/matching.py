@@ -582,15 +582,18 @@ def _coarse_global_argmax(D_tab8, D_q8, h, w, s_key: int,
     winner's legitimately high neighbours.  Queries go in chunks of
     ``chunk`` so the (chunk, n_keys) score block stays small.
 
-    The int8 products are taken in f32: each is at most 127^2 and a
-    24-feature sum at most 387,096 < 2^24, so every partial sum is an exact
+    The int8 products are taken in f32: each is at most 127^2 and an
+    F-feature sum at most F * 16,129 < 2^24 for F up to 1,040 (387,096 at
+    MASt3R's 24, 2,064,512 at VGGT's 128), so every partial sum is an exact
     integer in any order and the scores equal JAX's int32 ones.  The first
     maximum wins (``torch.argmax``, as ``jnp.argmax``).
 
     D_tab8 (b, h, w, f) int8; D_q8 (b, nq, f) int8.  Returns (pos (b, nq, 2)
     int64 full-res pixels, score (b, nq) int32, second (b, nq) int32)."""
     b, f = D_tab8.shape[0], D_tab8.shape[-1]
-    hk, wk = h // s_key, w // s_key
+    # every s_key-th row and column from the first: a partial last cell
+    # where s_key does not divide the side (VGGT's 518 columns)
+    hk, wk = -(-h // s_key), -(-w // s_key)
     keys = D_tab8[:, ::s_key, ::s_key].reshape(b, hk * wk, f) \
         .to(torch.float32).transpose(1, 2)                  # (b, f, nk)
     ku = torch.arange(wk, device=D_tab8.device)
@@ -638,7 +641,10 @@ def match_desc_global(D8_i, D8_j, dconf_i, dconf_j, h, w,
     j and the Q blocks are the full-res descriptor confidences."""
     b = D8_i.shape[0]
     h2, w2 = h // 2, w // 2
-    h4, w4 = h // 4, w // 4
+    # the quarter grid is every 4th row and column from the first, so
+    # where 4 does not divide an (even) side its last cell has one half-grid
+    # query, and ``expand2x`` crops the repeat to the half grid
+    h4, w4 = -(-h // 4), -(-w // 4)
 
     def half_queries(D8):
         return D8[:, ::2, ::2].reshape(b, h2 * w2, -1)
@@ -651,7 +657,7 @@ def match_desc_global(D8_i, D8_j, dconf_i, dconf_j, h, w,
         half-grid query takes its parent quarter cell's value."""
         A4 = A.reshape((b, h4, w4) + tuple(A.shape[2:]))
         A4 = A4.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        return A4.reshape((b, h2 * w2) + tuple(A.shape[2:]))
+        return A4[:, :h2, :w2].reshape((b, h2 * w2) + tuple(A.shape[2:]))
 
     def one_direction(D_tab, D_q4, D_qh):
         pos4, _, second4 = _coarse_global_argmax(D_tab, D_q4, h, w, s_key=4)
